@@ -1,11 +1,12 @@
-"""Fused decode attention kernel vs naive full-window reference."""
+"""Decode/prefill attention and the KV write vs naive full-window
+references."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from petit_kernel_tpu.ops.kernels import attention as attn
+from petit_jax.ops.kernels import attention as attn
 
 
 def _naive(q, k_all, v_all, pos):
@@ -34,7 +35,7 @@ def test_decode_attention_contiguous_matches_naive(hkv, h):
     pos = jnp.asarray([5, 130, 255], jnp.int32)
     nb = S // ps
     out = attn.decode_attention_contiguous(q, k, v, pos, nb=nb,
-                                           page_size=ps, interpret=True)
+                                           page_size=ps)
     want = _naive(q, k, v, pos)
     np.testing.assert_allclose(np.asarray(out, np.float32), want,
                                rtol=3e-2, atol=3e-2)
@@ -65,7 +66,7 @@ def test_decode_attention_paged_matches_naive():
     out = attn.paged_decode_attention(
         jnp.asarray(q, jnp.bfloat16), jnp.asarray(k_pages, jnp.bfloat16),
         jnp.asarray(v_pages, jnp.bfloat16), jnp.asarray(bt),
-        jnp.asarray(pos), nb=nb, page_size=ps, interpret=True)
+        jnp.asarray(pos), nb=nb, page_size=ps)
     want = _naive(jnp.asarray(q, jnp.bfloat16),
                   jnp.asarray(k_all, jnp.bfloat16),
                   jnp.asarray(v_all, jnp.bfloat16), pos)
@@ -74,7 +75,7 @@ def test_decode_attention_paged_matches_naive():
 
 
 def test_decode_attention_fp8_kv():
-    """FP8 page pool: kernel upcasts in VMEM; tolerance covers e4m3 noise."""
+    """FP8 cache: upcast at the dot; tolerance covers e4m3 noise."""
     B, S, hkv, h, d, ps = 2, 256, 2, 8, 128, 128
     rng = np.random.default_rng(3)
     k = rng.standard_normal((B, S, hkv, d)).astype(np.float32)
@@ -84,7 +85,7 @@ def test_decode_attention_fp8_kv():
     k8 = jnp.asarray(k, jnp.float8_e4m3fn)
     v8 = jnp.asarray(v, jnp.float8_e4m3fn)
     out = attn.decode_attention_contiguous(q, k8, v8, pos, nb=S // ps,
-                                           page_size=ps, interpret=True)
+                                           page_size=ps)
     want = _naive(q, jnp.asarray(k8, jnp.float32),
                   jnp.asarray(v8, jnp.float32), pos)
     np.testing.assert_allclose(np.asarray(out, np.float32), want,
@@ -104,22 +105,17 @@ def test_decode_attention_headed_bf16_matches_legacy_layout():
     kp = jnp.asarray(k.reshape(B * per, ps, hkv, d), jnp.bfloat16)
     vp = jnp.asarray(v.reshape(B * per, ps, hkv, d), jnp.bfloat16)
     legacy = attn.paged_decode_attention(q, kp, vp, bt, pos, nb=per,
-                                         page_size=ps, interpret=True)
+                                         page_size=ps)
     headed = attn.paged_decode_attention(
         q, kp.transpose(0, 2, 1, 3), vp.transpose(0, 2, 1, 3), bt, pos,
-        nb=per, page_size=ps, interpret=True, headed=True)
+        nb=per, page_size=ps, headed=True)
     np.testing.assert_array_equal(np.asarray(legacy, np.float32),
                                   np.asarray(headed, np.float32))
 
 
 def test_decode_attention_headed_fp8_swar():
-    """The SWAR fp8 upcast path vs the exact-upcast oracle.
-
-    Values are scaled into e4m3's normal range so the SWAR subnormal flush
-    is not exercised (covered separately below); the kernel's only other
-    deviation from the astype path is bf16 dot rounding, within the usual
-    attention tolerance.
-    """
+    """Headed fp8 page pool vs the exact-upcast oracle (bf16 dot rounding
+    is the only deviation, within the usual attention tolerance)."""
     B, S, hkv, h, d, ps = 2, 512, 2, 8, 128, 256
     rng = np.random.default_rng(11)
     k = rng.standard_normal((B, S, hkv, d)).astype(np.float32)
@@ -133,7 +129,7 @@ def test_decode_attention_headed_fp8_swar():
     v8 = jnp.asarray(v.reshape(B * per, ps, hkv, d),
                      jnp.float8_e4m3fn).transpose(0, 2, 1, 3)
     out = attn.paged_decode_attention(q, k8, v8, bt, pos, nb=per,
-                                      page_size=ps, interpret=True,
+                                      page_size=ps,
                                       headed=True)
     k8v = np.asarray(k8.transpose(0, 2, 1, 3), np.float32).reshape(
         B, S, hkv, d)
@@ -142,38 +138,6 @@ def test_decode_attention_headed_fp8_swar():
     want = _naive(q, k8v, v8v, pos)
     np.testing.assert_allclose(np.asarray(out, np.float32), want,
                                rtol=5e-2, atol=5e-2)
-
-
-def test_upcast_f8_swar_bit_exact_for_normals():
-    """_upcast_f8_swar is bit-exact vs astype for every normal e4m3 byte
-    and flushes zero/subnormal bytes (exp field 0) to signed zero."""
-    from jax.experimental import pallas as pl
-
-    allb = np.arange(256, dtype=np.uint8)
-    # lay every byte value out along the position axis: (1, 256, 128)
-    blk = np.broadcast_to(allb[None, :, None], (1, 256, 128)).copy()
-
-    def kk(x_ref, oe_ref, oo_ref):
-        e, o = attn._upcast_f8_swar(x_ref[:])
-        oe_ref[:] = e
-        oo_ref[:] = o
-
-    e, o = pl.pallas_call(
-        kk,
-        out_shape=(jax.ShapeDtypeStruct((1, 128, 128), jnp.bfloat16),
-                   jax.ShapeDtypeStruct((1, 128, 128), jnp.bfloat16)),
-        interpret=True)(jax.lax.bitcast_convert_type(
-            jnp.asarray(blk), jnp.float8_e4m3fn))
-    got = np.zeros(256, np.float32)
-    got[0::2] = np.asarray(e, np.float32)[0, :, 0]
-    got[1::2] = np.asarray(o, np.float32)[0, :, 0]
-    exact = np.asarray(jax.lax.bitcast_convert_type(
-        jnp.asarray(allb), jnp.float8_e4m3fn).astype(jnp.float32))
-    is_sub = (allb & 0x78) == 0          # exp field 0: zero or subnormal
-    is_nan = (allb & 0x7F) == 0x7F       # e4m3fn NaN
-    check = ~(is_sub | is_nan)
-    np.testing.assert_array_equal(got[check], exact[check])
-    np.testing.assert_array_equal(got[is_sub], np.zeros(is_sub.sum()))
 
 
 def test_bucket():
@@ -207,9 +171,7 @@ def test_flash_prefill_matches_naive(hkv, h, T):
     v = jnp.asarray(rng.standard_normal((B, S, hkv, d)), jnp.bfloat16)
     pos0 = jnp.asarray([0, 100], jnp.int32)   # fresh + resumed chunk
     ns = S // 128
-    out = attn.flash_prefill_attention(q, k, v, pos0, ns=ns,
-                                       block_q=min(128, T),
-                                       interpret=True)
+    out = attn.flash_prefill_attention(q, k, v, pos0, ns=ns)
     want = _naive_prefill(q, k, v, pos0)
     np.testing.assert_allclose(np.asarray(out, np.float32), want,
                                rtol=3e-2, atol=3e-2)
@@ -222,8 +184,7 @@ def test_flash_prefill_fp8_kv():
     k8 = jnp.asarray(rng.standard_normal((B, S, hkv, d)), jnp.float8_e4m3fn)
     v8 = jnp.asarray(rng.standard_normal((B, S, hkv, d)), jnp.float8_e4m3fn)
     pos0 = jnp.asarray([30], jnp.int32)
-    out = attn.flash_prefill_attention(q, k8, v8, pos0, ns=2, block_q=64,
-                                       interpret=True)
+    out = attn.flash_prefill_attention(q, k8, v8, pos0, ns=2)
     want = _naive_prefill(q, jnp.asarray(k8, jnp.float32),
                           jnp.asarray(v8, jnp.float32), pos0)
     np.testing.assert_allclose(np.asarray(out, np.float32), want,
@@ -239,16 +200,16 @@ def test_decode_contiguous_headed_bf16_matches_flat():
     q = jnp.asarray(rng.standard_normal((B, h, d)), jnp.bfloat16)
     pos = jnp.asarray([5, 130, 255], jnp.int32)
     flat = attn.decode_attention_contiguous(q, k, v, pos, nb=2,
-                                            page_size=128, interpret=True)
+                                            page_size=128)
     headed = attn.decode_attention_contiguous_headed(
         q, k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3), pos,
-        nb=2, page_size=128, interpret=True)
+        nb=2, page_size=128)
     np.testing.assert_array_equal(np.asarray(flat, np.float32),
                                   np.asarray(headed, np.float32))
 
 
 def test_decode_contiguous_headed_fp8_swar():
-    """fp8 headed contiguous decode (SWAR upcast) vs the exact oracle."""
+    """fp8 headed contiguous decode vs the exact oracle."""
     B, S, hkv, h, d = 2, 512, 2, 8, 128
     rng = np.random.default_rng(17)
     k8 = jnp.asarray(rng.standard_normal((B, S, hkv, d)),
@@ -259,7 +220,7 @@ def test_decode_contiguous_headed_fp8_swar():
     pos = jnp.asarray([511, 70], jnp.int32)
     out = attn.decode_attention_contiguous_headed(
         q, k8.transpose(0, 2, 1, 3), v8.transpose(0, 2, 1, 3), pos,
-        nb=2, page_size=256, interpret=True)
+        nb=2, page_size=256)
     want = _naive(q, np.asarray(k8, np.float32),
                   np.asarray(v8, np.float32), pos)
     np.testing.assert_allclose(np.asarray(out, np.float32), want,
@@ -275,11 +236,10 @@ def test_flash_prefill_headed_matches_flat(dtype):
     v = jnp.asarray(rng.standard_normal((B, S, hkv, d)), dt)
     q = jnp.asarray(rng.standard_normal((B, T, h, d)), jnp.bfloat16)
     pos0 = jnp.asarray([0, 100], jnp.int32)
-    flat = attn.flash_prefill_attention(q, k, v, pos0, ns=4, block_q=64,
-                                        interpret=True)
+    flat = attn.flash_prefill_attention(q, k, v, pos0, ns=4)
     headed = attn.flash_prefill_attention(
         q, k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3), pos0,
-        ns=4, block_q=64, interpret=True, headed=True)
+        ns=4, headed=True)
     np.testing.assert_array_equal(np.asarray(flat, np.float32),
                                   np.asarray(headed, np.float32))
 
@@ -288,10 +248,9 @@ def test_flash_prefill_headed_matches_flat(dtype):
     (False, jnp.bfloat16), (True, jnp.bfloat16),
     (True, jnp.float8_e4m3fn)])
 def test_kv_append_in_place(headed, dtype):
-    """kv_append (in-place pallas cache write) matches a masked
-    dynamic_update_slice bit-exactly in both cache layouts (headed fp8 is
-    the SWAR serving cache: the kernel u32-splices the row)."""
-    from petit_kernel_tpu.ops.kernels import attention as A
+    """kv_append (the KV write) matches a masked per-row update
+    bit-exactly in both cache layouts, bf16 and fp8."""
+    from petit_jax.ops.kernels import attention as A
     B, S, H, D = 2, 8, 2, 128
     shape = (B, H, S, D) if headed else (B, S, H, D)
     ck = (jnp.arange(np.prod(shape), dtype=jnp.float32) % 13
@@ -302,8 +261,7 @@ def test_kv_append_in_place(headed, dtype):
     pos = jnp.array([2, 5], jnp.int32)
     mask = jnp.array([True, False])
     ck0, cv0 = np.asarray(ck, np.float32), np.asarray(cv, np.float32)
-    nk, nv = A.kv_append(ck, cv, kn, vn, pos, mask, headed=headed,
-                         interpret=True)
+    nk, nv = A.kv_append(ck, cv, kn, vn, pos, mask, headed=headed)
     exp_k, exp_v = ck0.copy(), cv0.copy()
     if headed:
         exp_k[0, :, 2], exp_v[0, :, 2] = 7.0, 9.0
@@ -312,7 +270,52 @@ def test_kv_append_in_place(headed, dtype):
     assert np.array_equal(np.asarray(nk, np.float32), exp_k)
     assert np.array_equal(np.asarray(nv, np.float32), exp_v)
     # mask=None appends every row
-    nk2, _ = A.kv_append(ck, cv, kn, vn, pos, None, headed=headed,
-                         interpret=True)
+    nk2, _ = A.kv_append(ck, cv, kn, vn, pos, None, headed=headed)
     idx = (1, slice(None), 5) if headed else (1, 5)
     assert np.all(np.asarray(nk2, np.float32)[idx] == 7.0)
+
+
+@pytest.mark.parametrize("headed", [False, True])
+def test_kv_write_multi_token_masked(headed):
+    """kv_write stores a T-token chunk per row at its own position; a
+    masked row keeps its cache bit-exactly."""
+    B, S, H, D, T = 3, 16, 2, 8, 4
+    shape = (B, H, S, D) if headed else (B, S, H, D)
+    ck = jnp.zeros(shape, jnp.bfloat16)
+    new = (jnp.arange(B * T * H * D, dtype=jnp.float32) + 1).reshape(
+        B, T, H, D).astype(jnp.bfloat16)
+    pos = jnp.array([0, 5, 12], jnp.int32)
+    mask = jnp.array([True, False, True])
+    nk, nv = attn.kv_write(ck, ck, new, new, pos, mask, headed=headed)
+    got = np.asarray(nk, np.float32)
+    if headed:
+        got = got.transpose(0, 2, 1, 3)
+    want = np.zeros((B, S, H, D), np.float32)
+    for b in (0, 2):
+        want[b, int(pos[b]):int(pos[b]) + T] = np.asarray(new[b], np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert np.array_equal(np.asarray(nv), np.asarray(nk))
+
+
+def test_decode_attention_reads_only_the_window():
+    """Positions beyond the static window never reach the result: garbage
+    (even NaN) there leaves the output unchanged."""
+    B, S, hkv, h, d = 2, 512, 2, 8, 64
+    rng = np.random.default_rng(23)
+    k = rng.standard_normal((B, S, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((B, S, hkv, d)).astype(np.float32)
+    q = jnp.asarray(rng.standard_normal((B, h, d)), jnp.bfloat16)
+    pos = jnp.asarray([100, 255], jnp.int32)
+    ref = attn.decode_attention(q, jnp.asarray(k, jnp.bfloat16),
+                                jnp.asarray(v, jnp.bfloat16), pos,
+                                window=256)
+    k[:, 256:] = np.nan
+    v[:, 256:] = np.nan
+    got = attn.decode_attention(q, jnp.asarray(k, jnp.bfloat16),
+                                jnp.asarray(v, jnp.bfloat16), pos,
+                                window=256)
+    np.testing.assert_array_equal(np.asarray(got, np.float32),
+                                  np.asarray(ref, np.float32))
+    want = _naive(q, k[:, :256], v[:, :256], pos)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want,
+                               rtol=3e-2, atol=3e-2)

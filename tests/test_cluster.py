@@ -11,7 +11,7 @@ import numpy as np
 import jax
 import pytest
 
-from petit_kernel_tpu.models import cluster, llama, serving
+from petit_jax.models import cluster, llama, serving
 
 
 @pytest.fixture(scope="module")
@@ -196,7 +196,7 @@ _SPEC = dict(
 
 @pytest.fixture(scope="module")
 def sub_replicas():
-    from petit_kernel_tpu.models import rpc
+    from petit_jax.models import rpc
     reps = [rpc.SubprocessReplica(_SPEC), rpc.SubprocessReplica(_SPEC)]
     yield reps
     for r in reps:
@@ -224,7 +224,7 @@ def test_subprocess_replica_crash_replay_and_respawn(setup, sub_replicas):
     EOF/broken-pipe (fatal), replays the in-flight requests on the
     survivor, and the cooldown re-probe RESPAWNS the dead child, which
     rejoins and serves again."""
-    from petit_kernel_tpu.models import rpc
+    from petit_jax.models import rpc
     cfg = llama.LlamaConfig(**_SPEC["cfg"])
     params = llama.init_params(cfg, jax.random.PRNGKey(_SPEC["seed"]))
     want = serving.Engine(params, cfg, max_batch=8).run(_reqs(4))

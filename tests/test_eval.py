@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from petit_kernel_tpu.models import llama
-from petit_kernel_tpu.models import eval as ev
+from petit_jax.models import llama
+from petit_jax.models import eval as ev
 
 
 @pytest.fixture(scope="module")
@@ -133,7 +133,7 @@ def test_mmlu_csv_reader(tmp_path):
 def test_loglikelihood_through_engine(setup):
     """engine= path: scoring through the serving engines' forward matches
     the direct eval path (same model/format)."""
-    from petit_kernel_tpu.models import serving
+    from petit_jax.models import serving
     cfg, params = setup
     pairs = [([1, 2, 3], [7, 8]), ([4, 5], [6]), ([9], [10, 11, 12])]
     want = ev.loglikelihood(params, cfg, pairs, fmt="bf16")
@@ -146,7 +146,7 @@ def test_loglikelihood_through_engine(setup):
 
 
 def test_multiple_choice_through_engine(setup):
-    from petit_kernel_tpu.models import serving
+    from petit_jax.models import serving
     cfg, params = setup
     rng = np.random.default_rng(0)
     qs = [{"context": list(rng.integers(1, 50, size=5)),
@@ -171,7 +171,7 @@ def test_fp4_quality_gate_trained_model():
                                      "tools", "quality_gate.py"))
     qg = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(qg)
-    from petit_kernel_tpu.models import llama
+    from petit_jax.models import llama
     # round-4 gate semantics: training EARLY-STOPS once held-out accuracy
     # crosses target_acc (the gate wants thin margins, not saturation) —
     # ask for a modest target so the test stays fast and deterministic

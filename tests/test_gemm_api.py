@@ -5,12 +5,12 @@ import jax.numpy as jnp
 
 import pytest
 
-import petit_kernel_tpu as pk
-from petit_kernel_tpu.ops import gemm as G
-from petit_kernel_tpu.ops import layout as L
-from petit_kernel_tpu.ops import solution as S
-from petit_kernel_tpu.numerics import reference as refn
-from petit_kernel_tpu.utils.testdata import make_gemm_data
+import petit_jax as pk
+from petit_jax.ops import gemm as G
+from petit_jax.ops import layout as L
+from petit_jax.ops import solution as S
+from petit_jax.numerics import reference as refn
+from petit_jax.utils.testdata import make_gemm_data
 
 
 def test_mul_fp4_diff_grads_match_dense():
@@ -25,7 +25,7 @@ def test_mul_fp4_diff_grads_match_dense():
 
     val, (da, dgs) = jax.value_and_grad(f, argnums=(0, 1))(a, gs)
 
-    deq = L.dequant_from_tpu_layout(d.words, d.scales_t, 128, 512,
+    deq = L.dequant_from_layout(d.words, d.scales_t, 128, 512,
                                     group_size=16)
     w = jnp.asarray(deq, jnp.bfloat16)
 
@@ -69,9 +69,8 @@ def test_nvfp4p2_quantizer_emits_pow2_scales():
 
 
 def test_mul_nvfp4p2_matches_nvfp4_and_oracle():
-    """The pow2 int-scale path (mul_nvfp4p2_a16) agrees with both the host
-    oracle and the exact-NVFP4 multiply path on pow2-scale data — the two
-    kernels compute the same exact products when scales are powers of two."""
+    """mul_nvfp4p2_a16 agrees with both the host oracle and the NVFP4 path
+    on pow2-scale data (one kernel; the format is a quantizer contract)."""
     for (m, n, k) in [(16, 256, 512), (5, 128, 1024), (33, 208, 640)]:
         d = make_gemm_data(m, n, k, "nvfp4p2", seed=m)
         a = jnp.asarray(d.a, jnp.bfloat16)
@@ -89,16 +88,23 @@ def test_mul_nvfp4p2_matches_nvfp4_and_oracle():
 
 
 def test_nvfp4p2_solution_id_roundtrip_and_validation():
-    sid = S.SolutionId(16, 128, 512, S.ElementB.NVFP4, pow2_scale=True)
+    """nvfp4p2 shares NVFP4's kernel and solution space: a split-K id
+    round-trips, differs from the unsplit one, and is accepted through the
+    public mul; an MXFP4 id is rejected."""
+    sid = S.SolutionId(16, 128, 512, S.ElementB.NVFP4, split_k=2)
     assert S.SolutionId.from_repr(sid.repr()) == sid
     assert sid.repr() != S.SolutionId(16, 128, 512, S.ElementB.NVFP4).repr()
-    with pytest.raises(AssertionError):
-        S.SolutionId(16, 128, 512, S.ElementB.MXFP4, pow2_scale=True)
-    # explicit pow2 solution id accepted through the public mul
-    d = make_gemm_data(8, 128, 512, "nvfp4p2", seed=1)
+    d = make_gemm_data(8, 128, 1024, "nvfp4p2", seed=1)
+    with pytest.raises(ValueError, match="element_b"):
+        pk.mul_nvfp4p2_a16(jnp.asarray(d.a, jnp.bfloat16),
+                           jnp.asarray(d.words), jnp.asarray(d.scales_t),
+                           jnp.float32(d.global_scale), 8, 128, 1024,
+                           S.SolutionId(16, 128, 512, S.ElementB.MXFP4
+                                        ).repr(), interpret=True)
+    # explicit solution id accepted through the public mul
     c = pk.mul_nvfp4p2_a16(jnp.asarray(d.a, jnp.bfloat16),
                            jnp.asarray(d.words), jnp.asarray(d.scales_t),
-                           jnp.float32(d.global_scale), 8, 128, 512,
+                           jnp.float32(d.global_scale), 8, 128, 1024,
                            sid.repr(), interpret=True)
     assert c.shape == (8, 128)
 
@@ -106,7 +112,7 @@ def test_nvfp4p2_solution_id_roundtrip_and_validation():
 def test_nvfp4p2_end_to_end_model_quality():
     """fmt="nvfp4p2" through a tiny llama: logits stay close to the dense
     model (sanity that the mode is wired end-to-end, not a perf-only stub)."""
-    from petit_kernel_tpu.models import llama
+    from petit_jax.models import llama
     cfg = llama.LlamaConfig.tiny(hidden_size=256, intermediate_size=512)
     params = llama.init_params(cfg, jax.random.PRNGKey(0))
     qp = llama.quantize_params(params, "nvfp4p2")
@@ -119,9 +125,9 @@ def test_nvfp4p2_end_to_end_model_quality():
 
 
 def test_nvfp4p2z_quantizer_zero_free_and_bounded():
-    """quantize_nvfp4_pow2z: NO stored-zero codes anywhere (the kernel
-    contract that lets the decode drop the flag pipeline), pow2 scales,
-    and error bounded by one extra half-step for near-zero values."""
+    """quantize_nvfp4_pow2z: NO stored-zero codes anywhere (the format
+    contract), pow2 scales, and error bounded by one extra half-step for
+    near-zero values."""
     rng = np.random.default_rng(11)
     w = rng.standard_normal((64, 256)).astype(np.float32)
     w[3, :16] = 0.0          # all-zero group: must still be zero-FREE
@@ -143,10 +149,8 @@ def test_nvfp4p2z_quantizer_zero_free_and_bounded():
 
 
 def test_mul_nvfp4p2z_matches_pow2_kernel_bit_exact():
-    """On zero-free tensors the flag-free kernel (mul_nvfp4p2z_a16) must
-    be BIT-IDENTICAL to the masked pow2 kernel (the mask only ever fires
-    on stored zeros, which the contract excludes), and match the host
-    oracle."""
+    """On zero-free tensors mul_nvfp4p2z_a16 is BIT-IDENTICAL to
+    mul_nvfp4p2_a16 and matches the host oracle."""
     for (m, n, k) in [(16, 256, 512), (5, 128, 1024), (33, 208, 640)]:
         d = make_gemm_data(m, n, k, "nvfp4p2z", seed=m)
         a = jnp.asarray(d.a, jnp.bfloat16)
@@ -163,15 +167,15 @@ def test_mul_nvfp4p2z_matches_pow2_kernel_bit_exact():
 
 
 def test_nvfp4p2z_solution_id_and_model():
-    sid = S.SolutionId(16, 128, 512, S.ElementB.NVFP4, pow2_scale=True,
-                       zero_free=True)
+    sid = S.SolutionId(16, 128, 512, S.ElementB.NVFP4, num_warps=8,
+                       num_stages=2)
     assert S.SolutionId.from_repr(sid.repr()) == sid
     assert sid.repr() != S.SolutionId(16, 128, 512, S.ElementB.NVFP4,
-                                      pow2_scale=True).repr()
+                                      num_stages=2).repr()
     with pytest.raises(AssertionError):
-        S.SolutionId(16, 128, 512, S.ElementB.NVFP4, zero_free=True)
+        S.SolutionId(16, 128, 512, S.ElementB.NVFP4, num_warps=3)
     # end-to-end tiny llama sanity (mode wired, not a perf-only stub)
-    from petit_kernel_tpu.models import llama
+    from petit_jax.models import llama
     cfg = llama.LlamaConfig.tiny(hidden_size=256, intermediate_size=512)
     params = llama.init_params(cfg, jax.random.PRNGKey(0))
     qp = llama.quantize_params(params, "nvfp4p2z")
@@ -184,7 +188,7 @@ def test_nvfp4p2z_solution_id_and_model():
 
 @pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
 def test_mul_w4a8_close_to_a16(fmt):
-    """W4A8 (int8 MXU, per-token activation quant + per-column weight
+    """W4A8 (int8 product, per-token activation quant + per-column weight
     requant) tracks the exact a16 path within int8 quantization noise —
     the third MatmulType (reference kMatmulMfmaTypeFp8 analog)."""
     for (m, n, k) in [(256, 256, 512), (64, 128, 1024)]:
@@ -202,23 +206,27 @@ def test_mul_w4a8_close_to_a16(fmt):
 
 
 def test_mul_w4a8_weight_cache_variant():
-    """The weight-cache W4A8 kernel (grid (nn, nm, nk), int8 VMEM cache,
-    requant once per weight block) is bit-identical to the per-m-block
-    requant kernel — it only changes WHERE the int8 slabs are produced."""
+    """W4A8 is one XLA program whatever INT8 solution is named: an explicit
+    id gives the same bits as -1 resolution, and precomputed requant
+    constants (the engines' path) the same bits as per-call ones."""
     m, n, k = 256, 256, 1024
     d = make_gemm_data(m, n, k, "nvfp4", seed=3)
     a = jnp.asarray(d.a, jnp.bfloat16)
     base = (a, jnp.asarray(d.words), jnp.asarray(d.scales_t),
             jnp.float32(d.global_scale), m, n, k)
-    sid_wc = S.SolutionId(128, 256, 512, S.ElementB.NVFP4,
-                          S.MatmulType.INT8, weight_cache=True)
-    sid_no = S.SolutionId(128, 256, 512, S.ElementB.NVFP4,
-                          S.MatmulType.INT8)
+    sid_wc = S.SolutionId(64, 256, 512, S.ElementB.NVFP4,
+                          S.MatmulType.INT8, num_stages=1)
+    sid_no = -1
     c_wc = np.asarray(pk.mul_nvfp4_a8(*base, sid_wc.repr(),
                                       interpret=True), np.float32)
-    c_no = np.asarray(pk.mul_nvfp4_a8(*base, sid_no.repr(),
+    c_no = np.asarray(pk.mul_nvfp4_a8(*base, sid_no,
                                       interpret=True), np.float32)
     assert np.array_equal(c_wc, c_no)
+    from petit_jax.ops.kernels import fused
+    r_t, acol = fused.w4a8_requant_constants(jnp.asarray(d.scales_t))
+    c_pre = np.asarray(pk.mul_nvfp4_a8(*base, r_t=r_t, acol=acol),
+                       np.float32)
+    assert np.array_equal(c_pre, c_no)
     c16 = np.asarray(pk.mul_nvfp4_a16(*base, -1, interpret=True),
                      np.float32)
     rel = np.linalg.norm(c_wc - c16) / np.linalg.norm(c16)
@@ -230,7 +238,8 @@ def test_mul_w4a8_explicit_solution_validation():
     a = jnp.asarray(d.a, jnp.bfloat16)
     base = (a, jnp.asarray(d.words), jnp.asarray(d.scales_t),
             jnp.float32(d.global_scale), 64, 128, 512)
-    sid = S.SolutionId(64, 128, 512, S.ElementB.NVFP4, S.MatmulType.INT8)
+    sid = S.SolutionId(64, 128, 512, S.ElementB.NVFP4, S.MatmulType.INT8,
+                       num_stages=1)
     c = pk.mul_nvfp4_a8(*base, sid.repr(), interpret=True)
     assert c.shape == (64, 128)
     # non-INT8 explicit solution rejected
@@ -270,8 +279,8 @@ def test_mul_fuzz_shapes_vs_oracle(seed):
 
 
 def test_mxfp4z_quantizer_zero_free():
-    """quantize_mxfp4z: no stored-zero codes anywhere (the flag-free
-    kernel contract), E8M0 scales unchanged from quantize_mxfp4."""
+    """quantize_mxfp4z: no stored-zero codes anywhere (the format
+    contract), E8M0 scales unchanged from quantize_mxfp4."""
     rng = np.random.default_rng(21)
     w = rng.standard_normal((64, 256)).astype(np.float32)
     w[3, :32] = 0.0
@@ -287,10 +296,9 @@ def test_mxfp4z_quantizer_zero_free():
 
 
 def test_mul_mxfp4z_matches_mxfp4_kernel_bit_exact():
-    """On zero-free tensors the flag-free MXFP4 kernel must be
-    BIT-IDENTICAL to the masked MXFP4 kernel and match the host oracle."""
-    # 1152/1664 force the repack k-padding (the r5 NaN-wrap regression:
-    # pad scales must be 2^-126, not 0, for the flag-free packed add)
+    """On zero-free tensors mul_mxfp4z_a16 is BIT-IDENTICAL to
+    mul_mxfp4_a16 and matches the host oracle; 1152/1664 force the repack
+    k-padding (pad scales are 2^-126, their products finite)."""
     for (m, n, k) in [(16, 256, 1024), (5, 128, 2048), (33, 208, 1024),
                       (16, 256, 1152), (9, 208, 1664)]:
         d = make_gemm_data(m, n, k, "mxfp4z", seed=m)
@@ -310,11 +318,12 @@ def test_mul_mxfp4z_matches_mxfp4_kernel_bit_exact():
 
 
 def test_mxfp4z_solution_id_and_model():
-    sid = S.SolutionId(16, 128, 1024, S.ElementB.MXFP4, zero_free=True)
+    sid = S.SolutionId(16, 128, 1024, S.ElementB.MXFP4, num_stages=1,
+                       split_k=2)
     assert S.SolutionId.from_repr(sid.repr()) == sid
     with pytest.raises(AssertionError):
-        S.SolutionId(16, 128, 1024, S.ElementB.NVFP4, zero_free=True)
-    from petit_kernel_tpu.models import llama
+        S.SolutionId(16, 128, 1536, S.ElementB.MXFP4)
+    from petit_jax.models import llama
     cfg = llama.LlamaConfig.tiny(hidden_size=256, intermediate_size=512)
     params = llama.init_params(cfg, jax.random.PRNGKey(0))
     qp = llama.quantize_params(params, "mxfp4z")

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from petit_kernel_tpu.ops import hybrid
-from petit_kernel_tpu.numerics import reference as refn
+from petit_jax.ops import hybrid
+from petit_jax.numerics import reference as refn
 
 
 @pytest.mark.parametrize(("m", "n", "k", "bnf", "bnd"), [
@@ -61,7 +61,7 @@ def test_hybrid_salient_columns_exact():
 def test_llama_forward_hybrid_fmt():
     """fmt="hybrid" end-to-end: wide layers split, narrow layers fall back
     to pure nvfp4; forward stays close to the dense model."""
-    from petit_kernel_tpu.models import llama
+    from petit_jax.models import llama
 
     cfg = llama.LlamaConfig(
         vocab_size=128, hidden_size=512, intermediate_size=1024,

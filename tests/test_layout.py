@@ -1,12 +1,12 @@
-"""Round-trip tests for the petit-tpu weight/scale layout, mirroring the
+"""Round-trip tests for the petit weight/scale layout, mirroring the
 reference's NvFp4ToPetitFp4Test::TestConvert (repack -> dequant-from-tiled
 must equal dequant-from-native, quantization_utils_fp4_test.cc:103-133)."""
 
 import numpy as np
 import pytest
 
-from petit_kernel_tpu.numerics import formats, reference
-from petit_kernel_tpu.ops import layout
+from petit_jax.numerics import formats, reference
+from petit_jax.ops import layout
 
 
 @pytest.mark.parametrize(("n", "k"), [(16, 128), (32, 256), (48, 512), (128, 1024)])
@@ -66,7 +66,7 @@ def test_process_scales_rejects_overrange_e8m0():
 
 
 @pytest.mark.parametrize("fmt", ["nvfp4", "mxfp4"])
-def test_dequant_from_tpu_layout_matches_native(fmt):
+def test_dequant_from_layout_matches_native(fmt):
     rng = np.random.default_rng(42)
     n, k = 64, 512
     group = 16 if fmt == "nvfp4" else 32
@@ -87,7 +87,7 @@ def test_dequant_from_tpu_layout_matches_native(fmt):
     # stride-16 rows for both formats (MXFP4 duplicated per half-group)
     assert st.shape == (layout.padded_k(k, layout.pad_multiple(group))
                         // layout.SCALE_STRIDE, n)
-    tiled = layout.dequant_from_tpu_layout(words, st, n, k, group_size=group)
+    tiled = layout.dequant_from_layout(words, st, n, k, group_size=group)
     assert np.array_equal(tiled, native.T)  # bit-exact
 
 

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import ml_dtypes
 import pytest
 
-from petit_kernel_tpu.models import llama, loader
-from petit_kernel_tpu.numerics import reference as refn
+from petit_jax.models import llama, loader
+from petit_jax.numerics import reference as refn
 
 st_numpy = pytest.importorskip("safetensors.numpy")
 
@@ -118,7 +118,7 @@ def test_tied_embeddings(tmp_path):
 
 
 def test_repack_cache_roundtrip(tmp_path):
-    """Second load must come from petit_tpu_cache/ and be identical."""
+    """Second load must come from petit_cache/ and be identical."""
     rng = np.random.default_rng(5)
     _write_dense_ckpt(tmp_path, rng)
     cfg, p1 = loader.load_llama(str(tmp_path), fmt="nvfp4")
@@ -190,7 +190,7 @@ def test_load_prequantized_as_nvfp4p2(tmp_path):
     # with a single mantissa bit ({1,2,4} at exp field 0)
     mant, expf = s2 & 0b111, (s2 >> 3) & 0xF
     assert np.all((mant == 0) | ((expf == 0) & np.isin(mant, (1, 2, 4))))
-    from petit_kernel_tpu.ops import layout as layout_mod
+    from petit_jax.ops import layout as layout_mod
     assert np.array_equal(np.asarray(layer["words"]),
                           layout_mod.repack_fp4_weights(qw2, n, k))
     assert float(layer["gs"]) == pytest.approx(float(gs2))
@@ -224,7 +224,7 @@ def test_load_prequantized_as_nvfp4p2z(tmp_path):
                                               zero_free=True)
     nibs = np.concatenate([qw2 & 0xF, qw2 >> 4], axis=-1)
     assert not ((nibs == 0) | (nibs == 8)).any()
-    from petit_kernel_tpu.ops import layout as layout_mod
+    from petit_jax.ops import layout as layout_mod
     assert np.array_equal(np.asarray(layer["words"]),
                           layout_mod.repack_fp4_weights(qw2, n, k))
     # near-zero rows bounded by one half-step of the group scale

@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from petit_kernel_tpu.models import llama
-from petit_kernel_tpu.numerics import reference as refn
-from petit_kernel_tpu.ops import layout
+from petit_jax.models import llama
+from petit_jax.numerics import reference as refn
+from petit_jax.ops import layout
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +33,7 @@ def _dequant_params(qparams, params):
         for name, layer in lp.items():
             if isinstance(layer, dict) and "words" in layer:
                 k, n = dense_lp[name]["w"].shape
-                deq = layout.dequant_from_tpu_layout(
+                deq = layout.dequant_from_layout(
                     np.asarray(layer["words"]), np.asarray(layer["scales"]),
                     n, k, group_size=16) * np.float32(layer["gs"])
                 d[name] = {"w": jnp.asarray(deq, jnp.bfloat16)}

@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from petit_kernel_tpu.models import moe, llama
-from petit_kernel_tpu.models.moe import MoEConfig, MixtralConfig
+from petit_jax.models import moe, llama
+from petit_jax.models.moe import MoEConfig, MixtralConfig
 
 
 def test_moe_mlp_matches_dense_oracle():
@@ -22,10 +22,10 @@ def test_moe_mlp_matches_dense_oracle():
     dexperts = {}
     for n in ws:
         # dense oracle from the exact dequantized expert weights
-        from petit_kernel_tpu.ops import layout as L
+        from petit_jax.ops import layout as L
         E_, kk, nn = ws[n].shape  # logical dims (repack pads k)
         deq = np.stack([
-            L.dequant_from_tpu_layout(
+            L.dequant_from_layout(
                 np.asarray(qexperts[n]["words"][e]),
                 np.asarray(qexperts[n]["scales"][e]), nn, kk, group_size=32)
             * float(qexperts[n]["gs"][e]) for e in range(E_)])
@@ -74,12 +74,12 @@ def test_moe_routing_scales_to_many_experts():
           for n, (kk, nn) in dict(w_gate=(H, F), w_up=(H, F),
                                   w_down=(F, H)).items()}
     qex = {n: moe.quantize_moe_linear(ws[n], "mxfp4") for n in ws}
-    from petit_kernel_tpu.ops import layout as L
+    from petit_jax.ops import layout as L
     dex = {}
     for n in ws:
         E_, kk, nn = ws[n].shape
         deq = np.stack([
-            L.dequant_from_tpu_layout(
+            L.dequant_from_layout(
                 np.asarray(qex[n]["words"][e]),
                 np.asarray(qex[n]["scales"][e]), nn, kk, group_size=32)
             * float(qex[n]["gs"][e]) for e in range(E_)])
@@ -136,9 +136,9 @@ def test_tiny_mixtral_forward():
 def test_grouped_mul_matches_per_expert():
     """grouped kernel == per-expert fused_mul calls, bit-for-bit."""
     import jax.numpy as jnp
-    from petit_kernel_tpu.models import moe
-    from petit_kernel_tpu.ops.kernels import grouped, fused
-    from petit_kernel_tpu.ops.solution import SolutionId, ElementB
+    from petit_jax.models import moe
+    from petit_jax.ops.kernels import grouped, fused
+    from petit_jax.ops.solution import SolutionId, ElementB
 
     rng = np.random.default_rng(4)
     E, cap, k, n = 4, 16, 512, 256
@@ -164,7 +164,7 @@ def test_mixtral_served_through_engine():
     matching a straight cached greedy decode through moe.forward at the
     same compiled-graph shapes (bucket-padded prefill, kv_window decode)."""
     import functools
-    from petit_kernel_tpu.models import serving
+    from petit_jax.models import serving
 
     cfg = MixtralConfig.tiny()
     params = moe.init_params(cfg, jax.random.PRNGKey(0))
@@ -213,7 +213,7 @@ def test_moe_mlp_zero_free_matches_oracle(zfmt, group):
     qz = {n: moe.quantize_moe_linear(ws[n], zfmt) for n in ws}
     # zero-free container invariant across every expert (logical region
     # only: padded-k rows legitimately hold zero words)
-    from petit_kernel_tpu.ops import layout as L
+    from petit_jax.ops import layout as L
     for nm in qz:
         E_, kk, nn = ws[nm].shape
         for e in range(E_):
@@ -224,7 +224,7 @@ def test_moe_mlp_zero_free_matches_oracle(zfmt, group):
     for n in ws:
         E_, kk, nn = ws[n].shape
         deq = np.stack([
-            L.dequant_from_tpu_layout(
+            L.dequant_from_layout(
                 np.asarray(qz[n]["words"][e]),
                 np.asarray(qz[n]["scales"][e]), nn, kk, group_size=group)
             for e in range(E_)]) * np.asarray(qz[n]["gs"])[:, None, None]

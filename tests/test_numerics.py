@@ -1,5 +1,5 @@
 """Exhaustive bit-exact tests for the FP4/FP8/E8M0 codecs and the reference
-dequant oracles. TPU analog of the reference's exhaustive value-coverage tests
+dequant oracles. Analog of the reference's exhaustive value-coverage tests
 (lib/gemm/rocm/quantization/fp4/quantization_utils_fp4_test.cc:255-394): every
 (FP4 nibble x scale byte) combination is checked against closed-form values.
 """
@@ -8,7 +8,7 @@ import numpy as np
 import ml_dtypes
 import pytest
 
-from petit_kernel_tpu.numerics import formats, reference
+from petit_jax.numerics import formats, reference
 
 
 def closed_form_fp4(n: int) -> float:

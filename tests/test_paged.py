@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from petit_kernel_tpu.models import llama, paged
+from petit_jax.models import llama, paged
 
 
 @pytest.fixture(scope="module")

@@ -9,11 +9,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from petit_kernel_tpu.models import llama
-from petit_kernel_tpu import parallel as par
-from petit_kernel_tpu.ops import gemm as gemm_mod
-from petit_kernel_tpu.ops import layout as layout_mod
-from petit_kernel_tpu.numerics import reference as refn
+from petit_jax.models import llama
+from petit_jax import parallel as par
+from petit_jax.ops import gemm as gemm_mod
+from petit_jax.ops import layout as layout_mod
+from petit_jax.numerics import reference as refn
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices")
@@ -39,7 +39,7 @@ def test_quantize_linear_tp_kshard_matches_concat():
     for t in range(tp):
         wt = words[t * ksp // 8:(t + 1) * ksp // 8]
         st = scales[t * ksp // 16:(t + 1) * ksp // 16]
-        deq = layout_mod.dequant_from_tpu_layout(wt, st, n, ks,
+        deq = layout_mod.dequant_from_layout(wt, st, n, ks,
                                                  group_size=16) * gs
         ref = w[t * ks:(t + 1) * ks]
         # FP4 quantization error bounded by one scale step
@@ -81,13 +81,13 @@ def test_tp_forward_matches_single_device():
                 ksp = layout_mod.padded_k(ks)
                 words = np.asarray(layer["words"])
                 scales = np.asarray(layer["scales"])
-                parts = [layout_mod.dequant_from_tpu_layout(
+                parts = [layout_mod.dequant_from_layout(
                     words[t * ksp // 8:(t + 1) * ksp // 8],
                     scales[t * ksp // 16:(t + 1) * ksp // 16],
                     nn, ks, group_size=16) for t in range(tp)]
                 deq = np.concatenate(parts, axis=0)
             else:
-                deq = layout_mod.dequant_from_tpu_layout(
+                deq = layout_mod.dequant_from_layout(
                     np.asarray(layer["words"]), np.asarray(layer["scales"]),
                     nn, kk, group_size=16)
             d[name] = {"w": jnp.asarray(deq * float(layer["gs"]),
@@ -103,8 +103,8 @@ def test_tp_forward_matches_single_device():
 def test_mul_fp4_tp_rs_matches_psum_path():
     """k-sharded fused GEMM with the reduce-scatter epilogue (SURVEY §2.3)
     == the psum epilogue, up to reduction ordering."""
-    from petit_kernel_tpu.parallel import tp as tp_mod
-    from petit_kernel_tpu.parallel._compat import shard_map
+    from petit_jax.parallel import tp as tp_mod
+    from petit_jax.parallel._compat import shard_map
 
     rng = np.random.default_rng(5)
     m, k, n, tp = 8, 512, 256, 4
@@ -143,7 +143,7 @@ def test_tp_forward_sp_matches_psum_forward():
     mesh = _mesh(2, 4)
     qparams = par.quantize_params_tp(params, cfg, mesh, fmt="nvfp4")
     fwd = par.make_tp_forward(cfg, mesh, fmt="nvfp4")
-    from petit_kernel_tpu.parallel import tp as tp_mod
+    from petit_jax.parallel import tp as tp_mod
     fwd_sp = tp_mod.make_tp_forward_sp(cfg, mesh, fmt="nvfp4")
     tokens = jax.random.randint(jax.random.PRNGKey(1), (4, 8), 0,
                                 cfg.vocab_size)
@@ -185,8 +185,8 @@ def test_moe_expert_parallel_matches_single_device():
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import Mesh
-    from petit_kernel_tpu.models import moe
-    from petit_kernel_tpu.parallel import ep as ep_mod
+    from petit_jax.models import moe
+    from petit_jax.parallel import ep as ep_mod
 
     rng = np.random.default_rng(3)
     T, H, F, E = 16, 128, 256, 8
@@ -221,8 +221,8 @@ def test_pipeline_parallel_matches_single_device(fmt):
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import Mesh
-    from petit_kernel_tpu.models import llama
-    from petit_kernel_tpu.parallel import pp as pp_mod
+    from petit_jax.models import llama
+    from petit_jax.parallel import pp as pp_mod
 
     cfg = llama.LlamaConfig(
         vocab_size=128, hidden_size=128, intermediate_size=256,
@@ -252,7 +252,7 @@ def test_pp_decode_matches_single_device():
     PP can now serve, not just run prefill-style forwards (round-2
     verdict item 4/8)."""
     from jax.sharding import Mesh
-    from petit_kernel_tpu.parallel import pp as pp_mod
+    from petit_jax.parallel import pp as pp_mod
 
     cfg = llama.LlamaConfig(
         vocab_size=128, hidden_size=128, intermediate_size=256,
@@ -289,8 +289,8 @@ def test_ep_engine_serving_matches_single_device():
     make_ep_step (experts sharded on a 4-way "ep" mesh, attention
     replicated) emits the same tokens as the single-device MoE engine."""
     from jax.sharding import Mesh
-    from petit_kernel_tpu.models import moe, serving
-    from petit_kernel_tpu.parallel import ep as ep_mod
+    from petit_jax.models import moe, serving
+    from petit_jax.parallel import ep as ep_mod
 
     cfg = moe.MixtralConfig.tiny()
     params = moe.init_params(cfg, jax.random.PRNGKey(0))
@@ -317,8 +317,8 @@ def test_quantize_linear_tp_nvfp4p2z_zero_free_shards():
     """k-sharded p2z TP layer: every shard honors the zero-free contract
     (no stored-zero codes) and the sharded fused GEMM matches the host
     oracle on the concatenated dequant."""
-    from petit_kernel_tpu.parallel import tp as tp_mod
-    from petit_kernel_tpu.numerics import reference as refn
+    from petit_jax.parallel import tp as tp_mod
+    from petit_jax.numerics import reference as refn
 
     rng = np.random.default_rng(9)
     m, k, n, tp = 8, 512, 256, 4
@@ -345,7 +345,7 @@ def test_quantize_linear_tp_nvfp4p2z_zero_free_shards():
     scales = np.asarray(layer["scales"])
     wrows, srows = words.shape[0] // tp, scales.shape[0] // tp
     deq = np.concatenate(
-        [np.asarray(layout_mod.dequant_from_tpu_layout(
+        [np.asarray(layout_mod.dequant_from_layout(
             words[t * wrows:(t + 1) * wrows],
             scales[t * srows:(t + 1) * srows],
             n, ks, group_size=16), np.float32)

@@ -5,9 +5,9 @@ import time
 import numpy as np
 import pytest
 
-from petit_kernel_tpu import runtime
-from petit_kernel_tpu.ops import layout
-from petit_kernel_tpu.numerics import formats
+from petit_jax import runtime
+from petit_jax.ops import layout
+from petit_jax.numerics import formats
 
 
 @pytest.fixture(scope="module")

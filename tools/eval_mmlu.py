@@ -57,7 +57,7 @@ def main() -> None:
     args = ap.parse_args()
 
     from transformers import AutoTokenizer
-    from petit_kernel_tpu.models import eval as ev, loader
+    from petit_jax.models import eval as ev, loader
 
     tok = AutoTokenizer.from_pretrained(args.model, local_files_only=True)
     encode = lambda s: tok.encode(s, add_special_tokens=False)
@@ -67,7 +67,7 @@ def main() -> None:
         cfg = dataclasses.replace(cfg, max_seq_len=args.max_seq_len)
     engine = None
     if args.through_engine:
-        from petit_kernel_tpu.models import serving
+        from petit_jax.models import serving
         engine = serving.Engine(params, cfg, max_batch=args.batch,
                                 fmt=args.fmt)
 

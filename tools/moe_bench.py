@@ -1,14 +1,14 @@
-"""End-to-end Mixtral-class MoE decode throughput on the real chip.
+"""End-to-end Mixtral-class MoE decode throughput on the GPU.
 
 North-star config 4 evidence at the system level: a Mixtral-architecture
 model (8 experts, top-2) with FP4 attention projections and FP4 experts
-running through the grouped expert kernel (one Pallas call per projection
-for ALL experts), cached decode with the fused attention kernel.
+running through the grouped expert GEMM (one call per projection for ALL
+experts), cached decode attention.
 
-Model is scaled to fit a single v5e (16 GB): hidden 4096, inter 3584,
-16 layers, 8 experts => ~3.3 GB of FP4 weights. Weight contents are
-fabricated directly in the packed layout (values are irrelevant for
-timing; the q-coded layout decodes any bit pattern to finite bf16).
+Default model: hidden 4096, inter 3584, 16 layers, 8 experts => ~3.3 GB
+of FP4 weights. Weight contents are fabricated directly in the packed
+layout (values are irrelevant for timing; the q-coded layout decodes any
+bit pattern to finite bf16).
 
 Roofline note: the capacity-bucketed grouped kernel streams ALL experts'
 weights each step; at bs=8 x top-2, ~7.1 of 8 experts are active in
@@ -29,15 +29,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from petit_kernel_tpu.models import llama, moe
-
-HBM_GBPS = 750.0
+from petit_jax.models import llama, moe
+from petit_jax.utils import benchlib, compile_cache
 
 
 def fabricate_qlayer(rng, k, n, group=16, pow2_scales=False):
-    from petit_kernel_tpu.ops import layout as layout_mod
+    from petit_jax.ops import layout as layout_mod
     import ml_dtypes
-    from petit_kernel_tpu.numerics import formats
+    from petit_jax.numerics import formats
     kp = layout_mod.padded_k(k, layout_mod.pad_multiple(group))
     words = rng.integers(0, 2 ** 32, size=(kp // 8, n),
                          dtype=np.uint64).astype(np.uint32)
@@ -93,6 +92,7 @@ def build(cfg: moe.MixtralConfig, rng, moe_group: int,
 
 
 def main():
+    compile_cache.enable()
     p = argparse.ArgumentParser()
     p.add_argument("--bs", type=int, default=8)
     p.add_argument("--layers", type=int, default=16)
@@ -138,7 +138,7 @@ def main():
     wbytes += params["embed"].size * 2
 
     if args.engine:
-        from petit_kernel_tpu.models import serving
+        from petit_jax.models import serving
         fwd_fn = moe.make_engine_forward(cfg, attn_fmt="nvfp4",
                                          moe_fmt=args.moe_fmt)
         eng = serving.Engine(params, cfg, max_batch=bs, forward_fn=fwd_fn)
@@ -152,7 +152,7 @@ def main():
         # warm with the SAME token count as the timed run: block programs
         # key on (steps, kv_window bucket), and a different warm-run token
         # count leaves the timed run's (steps, window) pair cold — one 16L
-        # MoE Mosaic compile (~1 min) inside the timed region read as
+        # MoE compile inside the timed region read as
         # 9 tok/s (serve_bench had the identical bug)
         eng.run(reqs(args.new_tokens), decode_block=args.decode_block)
         eng.reset()
@@ -162,7 +162,7 @@ def main():
         dt = time.perf_counter() - t0
         toks = sum(len(v) for v in out.values())
         t_tok = dt / (toks / bs)
-        roofline_t = wbytes / (HBM_GBPS * 1e9)
+        roofline_t = wbytes / benchlib.hbm_peak()
         print(f"# MoE ENGINE mode: {args.layers}L E={cfg.num_experts} "
               f"moe_fmt={args.moe_fmt} bs={bs} "
               f"decode_block={args.decode_block}")
@@ -199,7 +199,7 @@ def main():
     tas = [timed(args.n1) for _ in range(3)]
     tbs = [timed(args.n2) for _ in range(3)]
     t_step = max((min(tbs) - min(tas)) / (args.n2 - args.n1), 1e-9)
-    roofline_t = wbytes / (HBM_GBPS * 1e9)
+    roofline_t = wbytes / benchlib.hbm_peak()
     print(f"# mixtral-class: {args.layers}L hidden={cfg.hidden_size} "
           f"inter={cfg.intermediate_size} E={cfg.num_experts} top2 "
           f"moe_fmt={args.moe_fmt} bs={bs} fp4+scales={wbytes / 1e9:.2f} GB")

@@ -28,8 +28,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from petit_kernel_tpu.ops.kernels import attention as att
-from petit_kernel_tpu.utils import benchlib
+from petit_jax.ops.kernels import attention as att
+from petit_jax.utils import benchlib
 
 
 def main():

@@ -23,7 +23,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from petit_kernel_tpu.models import llama, serving
+from petit_jax.models import llama, serving
 
 
 def main():

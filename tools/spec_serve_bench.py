@@ -26,8 +26,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from petit_kernel_tpu.models import llama, serving
-from petit_kernel_tpu.ops import autotune
+from petit_jax.models import llama, serving
+from petit_jax.ops import autotune
 
 
 def load_sb():

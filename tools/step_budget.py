@@ -1,14 +1,12 @@
 #!/usr/bin/env python
-"""Per-component microsecond budget for one decode token (VERDICT r3 #1).
+"""Per-component microsecond budget for one decode token.
 
-The engine decodes at ~11.4-13.5 ms/token against a ~6.2 ms weight-stream
-floor; tools/tpu_bench.py bisects the GEMM kernel and tools/attn_probe.py
-the attention kernel, but nothing accounts the FULL model step. This tool
-itemizes it, the reference's honest-wall-clock way
-(/root/reference/tools/benchmarks/matmul/main.cc:244-267):
+Itemizes the FULL model step, the reference's wall-clock way
+(tools/benchmarks/matmul/main.cc:244-267):
 
   1. Each projection GEMM at m=bs, measured alone (marginal-cost loop),
-     vs its own weight-stream floor (bytes / 750 GB/s).
+     vs its own weight-stream floor (bytes / the card's published HBM
+     bandwidth, utils/benchlib.hbm_peak).
   2. Ablation chains at --layers L (per-layer costs scale linearly; the
      head/sampling rows are per-step):
        full    : the serve_bench fori_loop proxy (sanity row)
@@ -20,7 +18,7 @@ itemizes it, the reference's honest-wall-clock way
      head = full-nohead, residual = full - gemm_chain - attention - norms
      - head (dispatch/residual-add/sampling glue).
 
-Run on the real chip: python tools/step_budget.py --layers 8
+Run on the GPU: python tools/step_budget.py --layers 8
 """
 import argparse
 import functools
@@ -34,12 +32,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from petit_kernel_tpu.models import llama
-from petit_kernel_tpu.ops import autotune
-from petit_kernel_tpu.ops import gemm as gemm_mod
-from petit_kernel_tpu.utils import benchlib
-
-HBM_GBPS = 750.0
+from petit_jax.models import llama
+from petit_jax.ops import autotune
+from petit_jax.ops import gemm as gemm_mod
+from petit_jax.utils import benchlib, compile_cache
 
 
 def load_sb():
@@ -81,7 +77,7 @@ def gemm_rows(cfg, params, bs, fmt, reps):
         t = benchlib.marginal_time(call, a, layer["words"], layer["scales"],
                                    layer["gs"], bytes_hint=wbytes,
                                    reps=reps)
-        floor = wbytes / (HBM_GBPS * 1e9)
+        floor = wbytes / benchlib.hbm_peak()
         rows[name] = (t, floor, wbytes)
         print(f"#   gemm {name:9s} (m={bs}, n={n}, k={k}): "
               f"{t * 1e6:7.1f} us  floor={floor * 1e6:7.1f} us "
@@ -143,7 +139,7 @@ def make_chain(cfg, bs, fmt, kv_window, variant):
                     ck, cv = c
                 else:
                     ck, cv = cache[i]
-                    from petit_kernel_tpu.ops.kernels import (
+                    from petit_jax.ops.kernels import (
                         attention as attn_w)
                     # same in-place pallas append the model path uses
                     # (llama.attention); the old vmap'd
@@ -152,7 +148,7 @@ def make_chain(cfg, bs, fmt, kv_window, variant):
                         ck, cv, kk.reshape(bs, nkv, d),
                         vv.reshape(bs, nkv, d), pos2[:, 0])
                     c = (ck, cv)
-                from petit_kernel_tpu.ops.kernels import attention as attn_mod
+                from petit_jax.ops.kernels import attention as attn_mod
                 S = ck.shape[1]
                 nb = min(-(-kv_window // 128), S // 128)
                 o = attn_mod.decode_attention_contiguous(
@@ -213,6 +209,7 @@ def time_chain(chain, params, cache0, toks0, n1, n2, reps):
 
 
 def main():
+    compile_cache.enable()
     p = argparse.ArgumentParser()
     p.add_argument("--bs", type=int, default=8)
     p.add_argument("--layers", type=int, default=8)
@@ -243,8 +240,8 @@ def main():
           f"kv_window={args.kv_window} seq={args.seq}", flush=True)
     print(f"# weight bytes: {wbytes_l / 1e6:.1f} MB/layer + "
           f"{head_bytes / 1e6:.1f} MB head; per-layer floor "
-          f"{wbytes_l / HBM_GBPS / 1e9 * 1e6:.1f} us, head floor "
-          f"{head_bytes / HBM_GBPS / 1e9 * 1e6:.1f} us", flush=True)
+          f"{wbytes_l / benchlib.hbm_peak() * 1e6:.1f} us, head floor "
+          f"{head_bytes / benchlib.hbm_peak() * 1e6:.1f} us", flush=True)
 
     rows = gemm_rows(cfg, params, bs, args.format, args.reps)
     gemm_l = sum(t for (t, _, _) in rows.values())
@@ -274,7 +271,7 @@ def main():
     norms = full - res["nonorm"]
     head = full - res["nohead"]
     resid = full - res["gemmonly"] - attn - norms - head
-    floor = (wbytes_l * L + head_bytes) / (HBM_GBPS * 1e9)
+    floor = (wbytes_l * L + head_bytes) / benchlib.hbm_peak()
     print("#")
     print(f"# BUDGET ({L}L, ms/step; x{32 // L if L <= 32 else 1} for 32L "
           f"per-layer rows):")
@@ -285,7 +282,7 @@ def main():
           f"(rope {rope_c * 1e3:.3f}, cache-write {write_c * 1e3:.3f})")
     print(f"#   rms_norms       : {norms * 1e3:7.3f}")
     print(f"#   head+sample     : {head * 1e3:7.3f}  "
-          f"(floor {head_bytes / HBM_GBPS / 1e9 * 1e3:.3f})")
+          f"(floor {head_bytes / benchlib.hbm_peak() * 1e3:.3f})")
     print(f"#   residual/glue   : {resid * 1e3:7.3f}")
     print(f"#   FULL            : {full * 1e3:7.3f}  floor={floor * 1e3:.3f} "
           f"({floor / full:.1%} of roofline)")
