@@ -287,67 +287,42 @@ def _devices_of(tree) -> int:
     return len(devs)
 
 
-def phase_tp4(key, layers: int):
+def _dequantized(qparams, params):
+    """qparams' FP4 projections dequantized to f32 dense {"w"} layers (k
+    rows taken from the dense `params`), on qparams' device."""
     import jax
     import jax.numpy as jnp
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-    from petit_jax.models import llama
     from petit_jax.ops.kernels import fused
-    from petit_jax.parallel import tp as tp_mod
-    from petit_jax.utils import testdata
-    import numpy as np
-
-    cfg = llama.LlamaConfig.llama3_70b(num_layers=layers, max_seq_len=256)
-    tp = 4
-    mesh = Mesh(np.array(jax.devices()[:tp]).reshape(1, tp), ("dp", "tp"))
-    h, d = cfg.hidden_size, cfg.head_dim
-    f = cfg.intermediate_size
-    cols = {"wq": (h, cfg.num_heads * d), "wk": (h, cfg.num_kv_heads * d),
-            "wv": (h, cfg.num_kv_heads * d), "w_gate": (h, f),
-            "w_up": (h, f)}
-    rows = {"wo": (cfg.num_heads * d, h), "w_down": (f, h)}
-
-    def put(x, spec):
-        return jax.device_put(x, NamedSharding(mesh, spec))
 
     deq = jax.jit(lambda w, s, g: fused.dequant(w, s, dtype=jnp.float32) * g)
-    ks = jax.random.split(key, layers + 2)
-    qlayers, dlayers = [], []
-    for li in range(layers):
-        q = {"attn_norm": put(jnp.ones((h,), jnp.bfloat16), P(None)),
-             "mlp_norm": put(jnp.ones((h,), jnp.bfloat16), P(None))}
-        dl = {"attn_norm": jnp.ones((h,), jnp.bfloat16),
-              "mlp_norm": jnp.ones((h,), jnp.bfloat16)}
-        for i, (nm, (k, n)) in enumerate(cols.items()):
-            L = testdata.random_fp4_layer(jax.random.fold_in(ks[li], i),
-                                          k, n)
-            q[nm] = {"words": put(L["words"], P(None, "tp")),
-                     "scales": put(L["scales"], P(None, "tp")),
-                     "gs": L["gs"]}
-            dl[nm] = {"w": deq(L["words"], L["scales"], L["gs"])}
-        for i, (nm, (k, n)) in enumerate(rows.items()):
-            parts = [testdata.random_fp4_layer(
-                jax.random.fold_in(ks[li], 100 + 10 * i + t), k // tp, n)
-                for t in range(tp)]
-            q[nm] = {"words": put(jnp.concatenate(
-                         [p["words"] for p in parts]), P("tp", None)),
-                     "scales": put(jnp.concatenate(
-                         [p["scales"] for p in parts]), P("tp", None)),
-                     "gs": parts[0]["gs"]}
-            dl[nm] = {"w": jnp.concatenate(
-                [deq(p["words"], p["scales"], p["gs"]) for p in parts])}
-        qlayers.append(q)
-        dlayers.append(dl)
-    embed = (jax.random.normal(ks[-2], (cfg.vocab_size, h), jnp.float32)
-             * 0.02).astype(jnp.bfloat16)
-    head = (jax.random.normal(ks[-1], (h, cfg.vocab_size), jnp.float32)
-            / np.sqrt(h)).astype(jnp.bfloat16)
-    qp = {"embed": put(embed, P(None, None)),
-          "final_norm": put(jnp.ones((h,), jnp.bfloat16), P(None)),
-          "lm_head": {"w": put(head, P(None, "tp"))}, "layers": qlayers}
+    layers = []
+    for lq, lp in zip(qparams["layers"], params["layers"]):
+        layers.append({nm: ({"w": deq(q["words"], q["scales"], q["gs"])
+                                  [:lp[nm]["w"].shape[0]]}
+                            if isinstance(q, dict) and "words" in q else q)
+                       for nm, q in lq.items()})
+    return {**qparams, "layers": layers}
+
+
+def phase_tp4(key, cfg):
+    """TP=4 through the program's own placement (quantize_params_tp) vs the
+    same dense weights quantized for one card (llama.quantize_params,
+    unfused: the same per-matrix scales) and run in f32 there."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import Mesh
+    from petit_jax.models import llama
+    from petit_jax.parallel import tp as tp_mod
+
+    tp = 4
+    mesh = Mesh(np.array(jax.devices()[:tp]).reshape(1, tp), ("dp", "tp"))
+    params = llama.init_params(cfg, key)
+    qp = tp_mod.quantize_params_tp(params, cfg, mesh)
     shards = _devices_of(qp)
-    dp = {"embed": embed, "final_norm": jnp.ones((h,), jnp.bfloat16),
-          "lm_head": {"w": head}, "layers": dlayers}
+    one = jax.devices()[0]
+    ref_params = jax.device_put(
+        _dequantized(llama.quantize_params(params, fuse=False), params), one)
 
     T = 32
     toks = jax.random.randint(jax.random.PRNGKey(3), (1, T), 0,
@@ -357,20 +332,19 @@ def phase_tp4(key, layers: int):
     step = jax.jit(tp_mod.make_tp_step(cfg, mesh))
     cache = tp_mod.init_cache_tp(cfg, 1, mesh)
     got_s, cache = step(qp, toks, cache, pos)
-    one = jax.devices()[0]
-    dp = jax.device_put(dp, one)
     with jax.default_matmul_precision("highest"):
         ref, _ = jax.jit(lambda p, t: llama.forward(p, t, cfg, fmt="bf16"))(
-            dp, jax.device_put(toks, one))
+            ref_params, jax.device_put(toks, one))
 
     def rel(x):
         x = jax.device_put(x.astype(jnp.float32), one)
         return float(jnp.linalg.norm(x - ref) / jnp.linalg.norm(ref))
     e_f, e_s = rel(got_f), rel(got_s)
     ok = shards == tp and e_f < LOGIT_TOL and e_s < LOGIT_TOL
-    return ok, (f"TP=4 Llama-3-70B widths, depth cut to {layers} of 80 "
-                f"layers: weights on {shards} devices; make_tp_forward rel "
-                f"L2 {e_f:.3e}, make_tp_step {e_s:.3e} vs one-card f32 "
+    return ok, (f"TP=4 hidden {cfg.hidden_size}, depth cut to "
+                f"{cfg.num_layers} layers, weights placed by "
+                f"quantize_params_tp on {shards} devices; make_tp_forward "
+                f"rel L2 {e_f:.3e}, make_tp_step {e_s:.3e} vs one-card f32 "
                 f"(tol {LOGIT_TOL})")
 
 
@@ -401,16 +375,15 @@ def phase_ep4(key):
                 f"{err:.2e} vs one-card moe_mlp (tol {MOE_TOL})")
 
 
-def phase_cluster():
+def phase_cluster(key, cfg):
+    """2 replicas x TP2 (make_tp_cluster) serving greedy requests through the
+    router, checked against a single-card Engine on the same weights."""
     import jax
+    import jax.numpy as jnp
     import numpy as np
     from petit_jax.models import cluster, llama, serving
 
-    cfg = llama.LlamaConfig(vocab_size=2048, hidden_size=1024,
-                            intermediate_size=2048, num_layers=2,
-                            num_heads=8, num_kv_heads=4, head_dim=128,
-                            max_seq_len=256)
-    params = llama.init_params(cfg, jax.random.PRNGKey(0))
+    params = llama.init_params(cfg, key)
     cl = cluster.make_tp_cluster(params, cfg, dp=2, tp=2, max_batch=2)
     # the replicas' weight matrices (scalar global scales are replicated)
     devsets = [frozenset(d for leaf in jax.tree.leaves(r.params)
@@ -419,14 +392,52 @@ def phase_cluster():
     disjoint = (len(devsets) == 2 and not (devsets[0] & devsets[1])
                 and all(len(s) == 2 for s in devsets))
     rng = np.random.default_rng(0)
-    reqs = [serving.Request(uid=i, tokens=rng.integers(0, 2048, 20 + i),
-                            max_new_tokens=8) for i in range(4)]
-    out = cl.run(reqs)
-    ok = disjoint and len(out) == 4 and all(len(v) == 8
-                                            for v in out.values())
-    return ok, (f"2 replicas x TP2 on disjoint cards ({sorted(len(s) for s in devsets)}"
-                f" devices each, disjoint={disjoint}): "
-                f"{sum(map(len, out.values()))} tokens for 4 requests")
+    new = 16
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (24, 60, 100, 150)]
+
+    def reqs():
+        return [serving.Request(uid=i, tokens=p, max_new_tokens=new)
+                for i, p in enumerate(prompts)]
+    out = cl.run(reqs())
+    full = len(out) == 4 and all(len(v) == new for v in out.values())
+    # single card, same weights: unfused quantization has the per-matrix
+    # scales quantize_params_tp uses
+    one = jax.devices()[0]
+    eng = serving.Engine(
+        jax.device_put(llama.quantize_params(params, fuse=False), one), cfg,
+        max_batch=4)
+    want = eng.run(reqs())
+    same = sum(out.get(i) == want[i] for i in range(4))
+    # teacher-forced: the single card's logits over each prompt followed by
+    # the cluster's tokens; each token the cluster chose must be the single
+    # card's best up to the logit noise, 2 * LOGIT_TOL * rms of the row
+    # (two logits, each off by about LOGIT_TOL * rms)
+    toks = np.zeros((4, max(map(len, prompts)) + new), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p) + new] = np.concatenate([p, out.get(i, [0] * new)])
+    ref = np.asarray(eng.score_forward(jnp.asarray(toks)), np.float32)
+    gap = 0.0
+    for i, p in enumerate(prompts):
+        rows = ref[i, len(p) - 1:len(p) - 1 + new]
+        chosen = rows[np.arange(new), np.asarray(out.get(i, [0] * new))]
+        rms = np.sqrt(np.mean(rows ** 2, axis=-1))
+        gap = max(gap, float(np.max((rows.max(-1) - chosen) / rms)))
+    # each replica's own serving forward on the same sequences
+    rels = []
+    for r in cl.replicas:
+        got = np.concatenate([np.asarray(r.score_forward(
+            jnp.asarray(toks[j:j + 2])), np.float32) for j in (0, 2)])
+        rels.append(float(np.linalg.norm(got - ref) / np.linalg.norm(ref)))
+    ok = (disjoint and full and gap <= 2 * LOGIT_TOL
+          and max(rels) < LOGIT_TOL)
+    return ok, (f"2 replicas x TP2, hidden {cfg.hidden_size}, depth cut to "
+                f"{cfg.num_layers} layers, on disjoint cards "
+                f"({sorted(len(s) for s in devsets)} devices each, "
+                f"disjoint={disjoint}): {sum(map(len, out.values()))} tokens "
+                f"for 4 requests; {same}/4 token streams equal to a one-card "
+                f"Engine; worst chosen-token gap to the one-card best "
+                f"{gap:.3e} rms (tol {2 * LOGIT_TOL}); replica logits rel L2 "
+                f"{' '.join(f'{e:.3e}' for e in rels)} (tol {LOGIT_TOL})")
 
 
 def main():
@@ -435,6 +446,8 @@ def main():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tp-layers", type=int, default=2,
                    help="depth of the TP=4 Llama-3-70B check (of 80)")
+    p.add_argument("--cluster-layers", type=int, default=2,
+                   help="depth of the 2 x TP2 Llama-3-8B cluster (of 32)")
     args = p.parse_args()
 
     try:
@@ -490,9 +503,16 @@ def main():
         del params
         run("moe", phase_moe, key)
     else:
-        run("tp4", phase_tp4, key, args.tp_layers)
+        from petit_jax.models import llama
+        print(f"depth cuts: TP=4 Llama-3-70B {args.tp_layers} of 80 layers, "
+              f"cluster Llama-3-8B {args.cluster_layers} of 32 layers "
+              f"(full widths)", flush=True)
+        run("tp4", phase_tp4, key, llama.LlamaConfig.llama3_70b(
+            num_layers=args.tp_layers, max_seq_len=256))
         run("ep4", phase_ep4, key)
-        run("cluster", phase_cluster)
+        run("cluster", phase_cluster, jax.random.fold_in(key, 2),
+            llama.LlamaConfig.llama3_8b(num_layers=args.cluster_layers,
+                                        max_seq_len=256))
     st = compile_cache.stats()
     print(f"compile cache: {st['hits']} hits, {st['misses']} misses in "
           f"{cache_dir}", flush=True)

@@ -86,12 +86,12 @@ def make_tp_cluster(params, cfg: llama.LlamaConfig, *, dp: int, tp: int,
     logic (admission, balancing, failure replay) is exercised for real
     with host memory as the transport.
     """
-    from .. import parallel as par
     from ..parallel import tp as tp_mod
 
+    qparams = tp_mod.quantize_tp(params, tp, fmt)     # once for all replicas
     replicas = []
     for mesh in replica_meshes(tp, dp, devices):
-        qtp = par.quantize_params_tp(params, cfg, mesh, fmt=fmt)
+        qtp = tp_mod.place_params_tp(qparams, mesh)
         step = tp_mod.make_tp_step(cfg, mesh, fmt=fmt)
         cache = tp_mod.init_cache_tp(cfg, max_batch, mesh)
         replicas.append(serving.Engine(qtp, cfg, max_batch=max_batch,

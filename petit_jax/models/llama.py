@@ -15,8 +15,10 @@ style comparisons (BASELINE.md).
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
+import os
 from typing import Any, Optional
 
 import jax
@@ -118,14 +120,6 @@ def quantize_linear(w_kn: np.ndarray, fmt: str = "nvfp4") -> dict:
             "gs": jnp.float32(gs)}
 
 
-# w4a8 -> exact-nvfp4 routing threshold (see linear() below). On an H100
-# 80GB HBM3 the w4a8 path lost to the a16 path per Llama-3-8B layer at every
-# m measured (64, 128, 256, 512; PERF.md), so every measured regime routes
-# to nvfp4. Callers that want the w4a8 path at any m call
-# gemm.mul_nvfp4_a8 directly.
-W4A8_MIN_M = 1024
-
-
 def linear(x: jax.Array, layer: dict, *, fmt: str = "nvfp4",
            interpret: bool = False) -> jax.Array:
     """y = x @ W (+ b) for dense or FP4-quantized layer dicts. x: (..., k).
@@ -148,21 +142,7 @@ def linear(x: jax.Array, layer: dict, *, fmt: str = "nvfp4",
         # fmt="hybrid" layers too narrow to split fall back to pure nvfp4
         pure_fmt = (fmt if fmt in ("mxfp4", "mxfp4z", "nvfp4p2",
                                    "nvfp4p2z", "w4a8") else "nvfp4")
-        if pure_fmt == "w4a8" and m < W4A8_MIN_M:
-            # crossover guardrail: below W4A8_MIN_M the per-call int8
-            # requantization costs more than the int8 product saves. Same
-            # container (nvfp4 words/scales), so small-m calls route to
-            # the exact FP4 GEMM instead.
-            pure_fmt = "nvfp4"
-        if pure_fmt == "w4a8" and "r_t" in layer:
-            # precomputed requant constants (serving engines add them at
-            # init): skips the per-call scale pass. Inference-only path,
-            # no VJP.
-            y = gemm_mod.mul_nvfp4_a8(
-                x2.astype(jnp.bfloat16), layer["words"], layer["scales"],
-                layer["gs"], m, n, k, -1, interpret=interpret,
-                r_t=layer["r_t"], acol=layer["acol"])
-        elif interpret:
+        if interpret:
             mul = {"nvfp4": gemm_mod.mul_nvfp4_a16,
                    "nvfp4p2": gemm_mod.mul_nvfp4p2_a16,
                    "nvfp4p2z": gemm_mod.mul_nvfp4p2z_a16,
@@ -227,26 +207,28 @@ def init_params(cfg: LlamaConfig, key: jax.Array,
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
-def _fused_projections(lp: dict, fmt: str) -> dict:
-    """Fuse wq|wk|wv and w_gate|w_up along n before quantizing: one wide
-    kernel launch instead of three/two narrow ones (the kv projections are
-    the narrowest matmuls in the model). Split back in attention()/mlp()."""
-    wq = np.asarray(lp["wq"]["w"], np.float32)
-    wk = np.asarray(lp["wk"]["w"], np.float32)
-    wv = np.asarray(lp["wv"]["w"], np.float32)
-    wg = np.asarray(lp["w_gate"]["w"], np.float32)
-    wu = np.asarray(lp["w_up"]["w"], np.float32)
-    out = {
-        "wqkv": quantize_linear(np.concatenate([wq, wk, wv], axis=1), fmt),
-        "w_gateup": quantize_linear(np.concatenate([wg, wu], axis=1), fmt),
-        "wo": quantize_linear(np.asarray(lp["wo"]["w"], np.float32), fmt),
-        "w_down": quantize_linear(np.asarray(lp["w_down"]["w"], np.float32),
-                                  fmt),
-    }
-    if "b" in lp["wq"]:  # Qwen2 QKV bias rides the fused projection
-        out["wqkv"]["b"] = jnp.concatenate(
-            [jnp.asarray(lp[nm]["b"]) for nm in ("wq", "wk", "wv")])
-    return out
+def host_map(fn, items) -> list:
+    """[fn(x) for x in items] on a small thread pool. Host quantization is
+    numpy array work that releases the GIL, so a model's matrices quantize
+    in parallel; at most 8 are in flight, which bounds host memory."""
+    items = list(items)
+    workers = min(8, os.cpu_count() or 1, len(items))
+    if workers <= 1:
+        return [fn(x) for x in items]
+    with concurrent.futures.ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(fn, items))
+
+
+def _dense(lp: dict, *names: str) -> np.ndarray:
+    ws = [np.asarray(lp[n]["w"], np.float32) for n in names]
+    return ws[0] if len(ws) == 1 else np.concatenate(ws, axis=1)
+
+
+# Fuse wq|wk|wv and w_gate|w_up along n before quantizing: one wide kernel
+# launch instead of three/two narrow ones (the kv projections are the
+# narrowest matmuls in the model). Split back in attention()/mlp().
+_FUSED = {"wqkv": ("wq", "wk", "wv"), "w_gateup": ("w_gate", "w_up"),
+          "wo": ("wo",), "w_down": ("w_down",)}
 
 
 def quantize_params(params: dict, fmt: str = "nvfp4",
@@ -256,7 +238,8 @@ def quantize_params(params: dict, fmt: str = "nvfp4",
     like ModelOpt checkpoints the reference consumes, README.md:31). With
     fuse=True (default) wq|wk|wv and w_gate|w_up are concatenated along n
     before quantization — 4 kernel launches per layer instead of 7, and
-    the narrow kv projections ride the wide fused matmul.
+    the narrow kv projections ride the wide fused matmul. The matrices
+    quantize in parallel on the host (host_map).
 
     quant_head=True additionally quantizes lm_head (decode streams it
     every step: a bf16 head is ~6% of the 8B-class weight stream; FP4
@@ -265,28 +248,31 @@ def quantize_params(params: dict, fmt: str = "nvfp4",
     with tools/quality_gate.py --quant-head before adopting)."""
     out = {"embed": params["embed"], "final_norm": params["final_norm"],
            "lm_head": params["lm_head"], "layers": []}
+    jobs = []          # (output layer dict, key, source layer, source keys)
     if quant_head:
-        hw = np.asarray(params["lm_head"]["w"], np.float32)
-        if hw.shape[0] % min_k == 0 and hw.shape[1] % 16 == 0:
-            out["lm_head"] = quantize_linear(hw, fmt)
+        shape = np.shape(params["lm_head"]["w"])
+        if shape[0] % min_k == 0 and shape[1] % 16 == 0:
+            jobs.append((out, "lm_head", params, ("lm_head",)))
     for lp in params["layers"]:
         quantizable = all(
-            np.asarray(lp[n]["w"]).shape[0] % min_k == 0
-            and np.asarray(lp[n]["w"]).shape[1] % 16 == 0
-            for n in _QUANT_KEYS)
+            np.shape(lp[n]["w"])[0] % min_k == 0
+            and np.shape(lp[n]["w"])[1] % 16 == 0 for n in _QUANT_KEYS)
         if fuse and quantizable and fmt != "hybrid":
             q = {k: v for k, v in lp.items() if k not in _QUANT_KEYS}
-            q.update(_fused_projections(lp, fmt))
-            out["layers"].append(q)
-            continue
-        q = dict(lp)
-        for name in _QUANT_KEYS:
-            w = np.asarray(lp[name]["w"], np.float32)
-            if w.shape[0] % min_k == 0 and w.shape[1] % 16 == 0:
-                q[name] = quantize_linear(w, fmt)
-                if "b" in lp[name]:
-                    q[name]["b"] = lp[name]["b"]
+            jobs += [(q, name, lp, src) for name, src in _FUSED.items()]
+        else:
+            q = dict(lp)
+            for name in _QUANT_KEYS:
+                shape = np.shape(lp[name]["w"])
+                if shape[0] % min_k == 0 and shape[1] % 16 == 0:
+                    jobs.append((q, name, lp, (name,)))
         out["layers"].append(q)
+    done = host_map(lambda j: quantize_linear(_dense(j[2], *j[3]), fmt), jobs)
+    for (q, name, lp, src), layer in zip(jobs, done):
+        if "b" in lp[src[0]]:   # Qwen2 QKV bias rides the (fused) projection
+            layer["b"] = jnp.concatenate([jnp.asarray(lp[nm]["b"])
+                                          for nm in src])
+        q[name] = layer
     return out
 
 

@@ -118,28 +118,6 @@ def _make_chunk_prefill(prefill_fn, takes_window: bool, top_k: int):
     return prog
 
 
-def _w4a8_precompute(params):
-    """Copy of params with per-layer W4A8 requant constants (r_t, acol)
-    precomputed once (fused.w4a8_requant_constants): every w4a8 prefill
-    GEMM otherwise re-derives them from the scales per call — an extra
-    pass over the scale array. llama.linear picks them up by key."""
-    from ..ops.kernels import fused as fused_mod
-
-    def aug(d):
-        if (isinstance(d, dict) and "words" in d and "scales" in d
-                and "wd" not in d and "r_t" not in d):
-            r_t, acol = fused_mod.w4a8_requant_constants(d["scales"])
-            return {**d, "r_t": r_t, "acol": acol}
-        return d
-
-    out = dict(params)
-    out["layers"] = [{k: aug(v) for k, v in lp.items()}
-                     for lp in params["layers"]]
-    if isinstance(params.get("lm_head"), dict) and "words" in params["lm_head"]:
-        out["lm_head"] = aug(params["lm_head"])
-    return out
-
-
 def _make_batched_prefill(prefill_fn, takes_window: bool, top_k: int):
     """Batched chunk admission: one FULL-BATCH program advances several
     queued prompts by one chunk each. Rows not being admitted ride along
@@ -185,28 +163,21 @@ class Engine:
         Sampling: per-request temperature (Request.temperature, 0=greedy)
         with an engine-wide optional top_k cutoff.
 
-        prefill_fmt: regime-specialized compute — run PREFILL chunks
-        through a different GEMM path than decode over the SAME weight
-        container. The intended pair is prefill_fmt="w4a8" with
-        fmt="nvfp4": prefill is compute-bound (int8 tensor cores run at
-        twice the bf16 rate) while decode is weight-bandwidth-bound (FP4
-        dequant wins). Only
+        prefill_fmt: run PREFILL chunks through a different GEMM path than
+        decode over the SAME weight container: prefill_fmt="w4a8" with
+        fmt="nvfp4" runs prefill on the int8 product. Only
         container-compatible pairs are allowed; prefill numerics then
         differ from decode (w4a8 is quality-gated, tools/quality_gate.py).
-        Ignored when forward_fn is given."""
+        On the H100 the w4a8 GEMM is slower than the FP4 one at every
+        prefill size measured (PERF.md), so this is a numerics option, not
+        a speed one. Ignored when forward_fn is given."""
         self.params = params
         self.cfg = cfg
         self.B = max_batch
         self.fmt = fmt
         self.prefill_fmt = prefill_fmt or fmt
-        # chunk admission size: w4a8 prefill defaults to 512 chunks, above
-        # llama.W4A8_MIN_M, below which linear() routes to nvfp4
-        if prefill_chunk is None and self.prefill_fmt == "w4a8":
-            prefill_chunk = 512
         self.prefill_chunk = (min(prefill_chunk, cfg.max_seq_len)
                               if prefill_chunk else None)
-        if self.prefill_fmt == "w4a8":
-            self.params = _w4a8_precompute(params)
         self.interpret = interpret
         self.top_k = top_k
         self._key = jax.random.PRNGKey(seed)
@@ -963,12 +934,8 @@ class PagedEngine(Engine):
         self.B = max_batch
         self.fmt = fmt
         self.prefill_fmt = prefill_fmt or fmt
-        if prefill_chunk is None and self.prefill_fmt == "w4a8":
-            prefill_chunk = 512   # w4a8 crossover (see Engine)
         self.prefill_chunk = (min(prefill_chunk, cfg.max_seq_len)
                               if prefill_chunk else None)
-        if self.prefill_fmt == "w4a8":
-            self.params = _w4a8_precompute(params)
         if self.prefill_fmt != fmt and \
                 not {fmt, self.prefill_fmt} <= {"nvfp4", "w4a8"}:
             raise ValueError(

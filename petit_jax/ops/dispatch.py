@@ -1,29 +1,26 @@
-"""Implementation choice per op, by platform.
+"""Implementation choice for the ops that have a hand-written kernel.
 
-Every op that has more than one implementation asks `implementation` which
-one to run, so the rule lives in one place:
+The FP4 GEMM and the grouped MoE GEMM each have a Pallas kernel and a plain
+XLA version; both ask `implementation` which one to run, so the rule lives
+in one place:
 
   - ``interpret=True`` (tests) runs the Pallas kernel in interpret mode;
-  - on ``gpu`` an op runs its Hopper kernel where it has one (Pallas through
-    Triton) and the problem is in the regime the kernel wins (at most
-    KERNEL_MAX_M rows), else the plain XLA version;
+  - on ``gpu`` the Pallas kernel through Triton when the problem is in the
+    regime the kernel wins (at most KERNEL_MAX_M rows), else the plain XLA
+    version;
   - on ``cpu`` an op runs the plain XLA version;
   - any other platform is an error: no op falls back silently.
+
+Ops with one implementation (W4A8, attention, the KV write) are plain XLA
+everywhere and do not come here.
 """
 
 from __future__ import annotations
 
 import jax
 
-# op -> has a hand-written GPU kernel
-OPS = {
-    "fp4_gemm": True,          # ops/kernels/fused.fused_mul
-    "grouped_gemm": True,      # ops/kernels/grouped.grouped_mul
-    "w4a8_gemm": False,        # ops/kernels/fused.fused_mul_w4a8
-    "decode_attention": False,
-    "prefill_attention": False,
-    "kv_write": False,
-}
+OPS = ("fp4_gemm",           # ops/kernels/fused.fused_mul
+       "grouped_gemm")       # ops/kernels/grouped.grouped_mul
 
 PLATFORMS = ("gpu", "cpu")
 
@@ -47,8 +44,6 @@ def implementation(op: str, interpret: bool = False,
     if platform not in PLATFORMS:
         raise RuntimeError(
             f"no implementation of {op!r} for platform {platform!r}")
-    if not OPS[op]:
-        return "xla"
     if interpret:
         return "interpret"
     if platform != "gpu" or (m is not None and m > KERNEL_MAX_M):

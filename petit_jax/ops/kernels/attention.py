@@ -10,8 +10,8 @@ XLA fuses the upcast; Q@K is a bf16 dot with f32 accumulation, softmax
 and P@V are f32. GQA groups the query heads per KV head instead of repeating
 KV.
 
-There is no kernel here: the XLA version runs on every platform
-(ops/dispatch.py).
+These ops have one implementation, plain XLA, so they take no part in
+the kernel dispatch (ops/dispatch.py).
 """
 
 from __future__ import annotations
@@ -21,8 +21,6 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-
-from .. import dispatch
 
 _NEG_INF = -1e30
 
@@ -86,7 +84,6 @@ def paged_decode_attention(q: jax.Array, k_pages: jax.Array,
                    length bucketed, ceil((max(pos)+1)/ps)
     returns      : (B, H, d) bf16
     """
-    dispatch.implementation("decode_attention")
     ps = k_pages.shape[2] if headed else k_pages.shape[1]
     assert ps == page_size and block_tables.shape[1] >= nb
     bt = block_tables[:, :nb].astype(jnp.int32)
@@ -95,15 +92,6 @@ def paged_decode_attention(q: jax.Array, k_pages: jax.Array,
     o = _attend(q[:, None], k, v, pos.astype(jnp.int32)[:, None],
                 headed=headed)
     return o[:, 0]
-
-
-def contiguous_block_tables(batch: int, max_seq: int,
-                            page_size: int) -> jax.Array:
-    """Identity block table viewing a contiguous (B, S, h, d) cache as a
-    pool of B*S/ps pages: cache.reshape(B*S/ps, ps, h, d) rows b*S/ps + i."""
-    per = max_seq // page_size
-    return (jnp.arange(batch, dtype=jnp.int32)[:, None] * per
-            + jnp.arange(per, dtype=jnp.int32)[None, :])
 
 
 def _window(c: jax.Array, window: int, headed: bool) -> jax.Array:
@@ -119,31 +107,10 @@ def decode_attention(q: jax.Array, ck: jax.Array, cv: jax.Array,
     """The decode-attention op: q (B, H, d) against the first `window`
     positions of a contiguous cache ((B, S, Hkv, d), or (B, Hkv, S, d)
     with headed=True), causal at pos (B,). Returns (B, H, d) bf16."""
-    dispatch.implementation("decode_attention")
     o = _attend(q[:, None], _window(ck, window, headed),
                 _window(cv, window, headed),
                 pos.astype(jnp.int32)[:, None], headed=headed)
     return o[:, 0]
-
-
-@functools.partial(jax.jit, static_argnames=("nb", "page_size"))
-def decode_attention_contiguous(q: jax.Array, ck: jax.Array, cv: jax.Array,
-                                pos: jax.Array, *, nb: int,
-                                page_size: int = 128) -> jax.Array:
-    """Decode attention over a contiguous (B, S, Hkv, d) cache, reading the
-    static window of the first nb * page_size positions."""
-    return decode_attention(q, ck, cv, pos, window=nb * page_size)
-
-
-@functools.partial(jax.jit, static_argnames=("nb", "page_size"))
-def decode_attention_contiguous_headed(q: jax.Array, ck: jax.Array,
-                                       cv: jax.Array, pos: jax.Array, *,
-                                       nb: int,
-                                       page_size: int = 128) -> jax.Array:
-    """decode_attention_contiguous over a HEADED contiguous (B, Hkv, S, d)
-    cache."""
-    return decode_attention(q, ck, cv, pos, window=nb * page_size,
-                            headed=True)
 
 
 def pow2_bucket(n: int, lo: int = 1) -> int:
@@ -175,31 +142,11 @@ def flash_prefill_paged(q: jax.Array, k_pages: jax.Array,
 
     q    : (B, T, H, d) post-RoPE; query t of row b sits at pos0[b] + t
     returns (B, T, H, d) bf16."""
-    dispatch.implementation("prefill_attention")
     assert block_tables.shape[1] >= ns
     bt = block_tables[:, :ns].astype(jnp.int32)
     k = _gather_pages(k_pages, bt, headed=True)
     v = _gather_pages(v_pages, bt, headed=True)
     return _attend(q, k, v, _chunk_positions(pos0, q.shape[1]), headed=True)
-
-
-@functools.partial(jax.jit, static_argnames=("ns", "block_s", "headed"))
-def flash_prefill_attention(q: jax.Array, ck: jax.Array, cv: jax.Array,
-                            pos0: jax.Array, *, ns: int, block_s: int = 128,
-                            headed: bool = False) -> jax.Array:
-    """Causal chunk prefill over contiguous KV.
-
-    q    : (B, T, H, d) post-RoPE queries; query t's absolute position is
-           pos0[b] + t
-    ck/cv: (B, S, Hkv, d) contiguous KV (bf16 or fp8; the current chunk
-           must already be written in), or (B, Hkv, S, d) with headed=True
-    pos0 : (B,) int32 chunk start positions
-    ns   : static number of block_s KV blocks to read (callers bucket
-           ceil(max(pos0 + T)/block_s))
-    returns (B, T, H, d) bf16.
-    """
-    return prefill_attention(q, ck, cv, pos0, window=ns * block_s,
-                             headed=headed)
 
 
 @functools.partial(jax.jit, static_argnames=("window", "headed"))
@@ -210,7 +157,6 @@ def prefill_attention(q: jax.Array, ck: jax.Array, cv: jax.Array,
     positions pos0[b] + t against the first `window` positions of a
     contiguous cache that already holds the chunk. Returns (B, T, H, d)
     bf16."""
-    dispatch.implementation("prefill_attention")
     return _attend(q, _window(ck, window, headed), _window(cv, window, headed),
                    _chunk_positions(pos0, q.shape[1]), headed=headed)
 
@@ -250,7 +196,6 @@ def kv_write(ck: jax.Array, cv: jax.Array, k_new: jax.Array,
                   in a batched decode step must not be overwritten)
     returns the updated (ck, cv); under jit with donated caches XLA updates
     them in place."""
-    dispatch.implementation("kv_write")
     if headed:
         k_new = k_new.transpose(0, 2, 1, 3)
         v_new = v_new.transpose(0, 2, 1, 3)
@@ -276,12 +221,3 @@ def kv_write(ck: jax.Array, cv: jax.Array, k_new: jax.Array,
             out.append(jax.vmap(upd)(c, new, pos, mask))
     return tuple(out)
 
-
-def kv_append(ck: jax.Array, cv: jax.Array, k_new: jax.Array,
-              v_new: jax.Array, pos: jax.Array,
-              mask: jax.Array | None = None, *, headed: bool = False):
-    """Append one token's KV per sequence: kv_write with T = 1.
-
-    k_new/v_new : (B, Hkv, d); returns the updated (ck, cv)."""
-    return kv_write(ck, cv, k_new[:, None], v_new[:, None], pos, mask,
-                    headed=headed)

@@ -343,7 +343,6 @@ def fused_mul_w4a8(a: jax.Array, words: jax.Array, scales_t: jax.Array,
     weight requantization (the decoded value times r_t, rounded in bf16 to
     int8), an int8 x int8 -> int32 dot, and the epilogue
     out = acc * arow * acol * gs."""
-    dispatch.implementation("w4a8_gemm")
     m, k = a.shape
     kp = words.shape[0] * 8
     assert scales_t.shape == (kp // 16, words.shape[1])

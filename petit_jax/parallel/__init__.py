@@ -1,4 +1,5 @@
 from .tp import (
-    shard_dense_params, quantize_linear_tp, quantize_params_tp,
+    shard_dense_params, quantize_linear_tp, quantize_params_tp, quantize_tp,
+    place_params_tp,
     make_tp_forward,
 )

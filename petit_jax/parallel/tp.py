@@ -120,38 +120,40 @@ _COL_KEYS = ("wq", "wk", "wv", "w_gate", "w_up")
 _ROW_KEYS = ("wo", "w_down")
 
 
+def quantize_tp(params: dict, tp: int, fmt: str = "nvfp4") -> dict:
+    """Quantize dense llama params for tp-way tensor parallelism, not yet
+    placed: column-parallel projections quantize globally, row-parallel
+    ones per shard (quantize_linear_tp). The matrices quantize in parallel
+    on the host (llama.host_map). One result can be placed on several
+    meshes (place_params_tp), e.g. one per data-parallel replica."""
+    layers, jobs = [], []       # jobs: (output layer, key, source, shard)
+    for lp in params["layers"]:
+        q = {"attn_norm": lp["attn_norm"], "mlp_norm": lp["mlp_norm"]}
+        layers.append(q)
+        jobs += [(q, name, lp, "n") for name in _COL_KEYS]
+        jobs += [(q, name, lp, "k") for name in _ROW_KEYS]
+    done = llama.host_map(lambda j: quantize_linear_tp(
+        np.asarray(j[2][j[1]]["w"], np.float32), tp, j[3], fmt), jobs)
+    for (q, name, _, _), layer in zip(jobs, done):
+        q[name] = layer
+    return {"embed": params["embed"], "final_norm": params["final_norm"],
+            "lm_head": params["lm_head"], "layers": layers}
+
+
+def place_params_tp(qparams: dict, mesh: Mesh) -> dict:
+    """Put quantize_tp's params on `mesh` with the specs the TP forward
+    reads (_params_spec): column-parallel words/scales split on n,
+    row-parallel ones on packed k, the rest replicated."""
+    return jax.tree.map(
+        lambda x, spec: jax.device_put(x, NamedSharding(mesh, spec)),
+        qparams, _params_spec(qparams))
+
+
 def quantize_params_tp(params: dict, cfg: llama.LlamaConfig, mesh: Mesh,
                        fmt: str = "nvfp4") -> dict:
     """Quantize dense llama params for tp-way tensor parallelism and place
     shards on the mesh."""
-    tp = mesh.shape["tp"]
-
-    def put(x, spec):
-        return jax.device_put(x, NamedSharding(mesh, spec))
-
-    def put_q(layer: dict, shard: str) -> dict:
-        wspec = P(None, "tp") if shard == "n" else P("tp", None)
-        return {"words": put(layer["words"], wspec),
-                "scales": put(layer["scales"], wspec),
-                "gs": layer["gs"]}
-
-    out = {
-        "embed": put(params["embed"], P(None, None)),
-        "final_norm": put(params["final_norm"], P(None)),
-        "lm_head": {"w": put(params["lm_head"]["w"], P(None, "tp"))},
-        "layers": [],
-    }
-    for lp in params["layers"]:
-        q = {"attn_norm": put(lp["attn_norm"], P(None)),
-             "mlp_norm": put(lp["mlp_norm"], P(None))}
-        for name in _COL_KEYS:
-            q[name] = put_q(quantize_linear_tp(
-                np.asarray(lp[name]["w"], np.float32), tp, "n", fmt), "n")
-        for name in _ROW_KEYS:
-            q[name] = put_q(quantize_linear_tp(
-                np.asarray(lp[name]["w"], np.float32), tp, "k", fmt), "k")
-        out["layers"].append(q)
-    return out
+    return place_params_tp(quantize_tp(params, mesh.shape["tp"], fmt), mesh)
 
 
 # ---------------------------------------------------------------------------

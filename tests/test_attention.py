@@ -34,8 +34,7 @@ def test_decode_attention_contiguous_matches_naive(hkv, h):
     v = jnp.asarray(rng.standard_normal((B, S, hkv, d)), jnp.bfloat16)
     pos = jnp.asarray([5, 130, 255], jnp.int32)
     nb = S // ps
-    out = attn.decode_attention_contiguous(q, k, v, pos, nb=nb,
-                                           page_size=ps)
+    out = attn.decode_attention(q, k, v, pos, window=nb * ps)
     want = _naive(q, k, v, pos)
     np.testing.assert_allclose(np.asarray(out, np.float32), want,
                                rtol=3e-2, atol=3e-2)
@@ -84,8 +83,7 @@ def test_decode_attention_fp8_kv():
     pos = jnp.asarray([255, 40], jnp.int32)
     k8 = jnp.asarray(k, jnp.float8_e4m3fn)
     v8 = jnp.asarray(v, jnp.float8_e4m3fn)
-    out = attn.decode_attention_contiguous(q, k8, v8, pos, nb=S // ps,
-                                           page_size=ps)
+    out = attn.decode_attention(q, k8, v8, pos, window=S)
     want = _naive(q, jnp.asarray(k8, jnp.float32),
                   jnp.asarray(v8, jnp.float32), pos)
     np.testing.assert_allclose(np.asarray(out, np.float32), want,
@@ -171,7 +169,7 @@ def test_flash_prefill_matches_naive(hkv, h, T):
     v = jnp.asarray(rng.standard_normal((B, S, hkv, d)), jnp.bfloat16)
     pos0 = jnp.asarray([0, 100], jnp.int32)   # fresh + resumed chunk
     ns = S // 128
-    out = attn.flash_prefill_attention(q, k, v, pos0, ns=ns)
+    out = attn.prefill_attention(q, k, v, pos0, window=ns * 128)
     want = _naive_prefill(q, k, v, pos0)
     np.testing.assert_allclose(np.asarray(out, np.float32), want,
                                rtol=3e-2, atol=3e-2)
@@ -184,7 +182,7 @@ def test_flash_prefill_fp8_kv():
     k8 = jnp.asarray(rng.standard_normal((B, S, hkv, d)), jnp.float8_e4m3fn)
     v8 = jnp.asarray(rng.standard_normal((B, S, hkv, d)), jnp.float8_e4m3fn)
     pos0 = jnp.asarray([30], jnp.int32)
-    out = attn.flash_prefill_attention(q, k8, v8, pos0, ns=2)
+    out = attn.prefill_attention(q, k8, v8, pos0, window=256)
     want = _naive_prefill(q, jnp.asarray(k8, jnp.float32),
                           jnp.asarray(v8, jnp.float32), pos0)
     np.testing.assert_allclose(np.asarray(out, np.float32), want,
@@ -199,11 +197,10 @@ def test_decode_contiguous_headed_bf16_matches_flat():
     v = jnp.asarray(rng.standard_normal((B, S, hkv, d)), jnp.bfloat16)
     q = jnp.asarray(rng.standard_normal((B, h, d)), jnp.bfloat16)
     pos = jnp.asarray([5, 130, 255], jnp.int32)
-    flat = attn.decode_attention_contiguous(q, k, v, pos, nb=2,
-                                            page_size=128)
-    headed = attn.decode_attention_contiguous_headed(
+    flat = attn.decode_attention(q, k, v, pos, window=256)
+    headed = attn.decode_attention(
         q, k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3), pos,
-        nb=2, page_size=128)
+        window=256, headed=True)
     np.testing.assert_array_equal(np.asarray(flat, np.float32),
                                   np.asarray(headed, np.float32))
 
@@ -218,9 +215,9 @@ def test_decode_contiguous_headed_fp8_swar():
                      jnp.float8_e4m3fn)
     q = jnp.asarray(rng.standard_normal((B, h, d)), jnp.bfloat16)
     pos = jnp.asarray([511, 70], jnp.int32)
-    out = attn.decode_attention_contiguous_headed(
+    out = attn.decode_attention(
         q, k8.transpose(0, 2, 1, 3), v8.transpose(0, 2, 1, 3), pos,
-        nb=2, page_size=256)
+        window=512, headed=True)
     want = _naive(q, np.asarray(k8, np.float32),
                   np.asarray(v8, np.float32), pos)
     np.testing.assert_allclose(np.asarray(out, np.float32), want,
@@ -236,10 +233,10 @@ def test_flash_prefill_headed_matches_flat(dtype):
     v = jnp.asarray(rng.standard_normal((B, S, hkv, d)), dt)
     q = jnp.asarray(rng.standard_normal((B, T, h, d)), jnp.bfloat16)
     pos0 = jnp.asarray([0, 100], jnp.int32)
-    flat = attn.flash_prefill_attention(q, k, v, pos0, ns=4)
-    headed = attn.flash_prefill_attention(
+    flat = attn.prefill_attention(q, k, v, pos0, window=512)
+    headed = attn.prefill_attention(
         q, k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3), pos0,
-        ns=4, headed=True)
+        window=512, headed=True)
     np.testing.assert_array_equal(np.asarray(flat, np.float32),
                                   np.asarray(headed, np.float32))
 
@@ -248,9 +245,8 @@ def test_flash_prefill_headed_matches_flat(dtype):
     (False, jnp.bfloat16), (True, jnp.bfloat16),
     (True, jnp.float8_e4m3fn)])
 def test_kv_append_in_place(headed, dtype):
-    """kv_append (the KV write) matches a masked per-row update
-    bit-exactly in both cache layouts, bf16 and fp8."""
-    from petit_jax.ops.kernels import attention as A
+    """The KV write of one decode token per row matches a masked per-row
+    update bit-exactly in both cache layouts, bf16 and fp8."""
     B, S, H, D = 2, 8, 2, 128
     shape = (B, H, S, D) if headed else (B, S, H, D)
     ck = (jnp.arange(np.prod(shape), dtype=jnp.float32) % 13
@@ -261,7 +257,8 @@ def test_kv_append_in_place(headed, dtype):
     pos = jnp.array([2, 5], jnp.int32)
     mask = jnp.array([True, False])
     ck0, cv0 = np.asarray(ck, np.float32), np.asarray(cv, np.float32)
-    nk, nv = A.kv_append(ck, cv, kn, vn, pos, mask, headed=headed)
+    nk, nv = attn.kv_write(ck, cv, kn[:, None], vn[:, None], pos, mask,
+                           headed=headed)
     exp_k, exp_v = ck0.copy(), cv0.copy()
     if headed:
         exp_k[0, :, 2], exp_v[0, :, 2] = 7.0, 9.0
@@ -270,7 +267,8 @@ def test_kv_append_in_place(headed, dtype):
     assert np.array_equal(np.asarray(nk, np.float32), exp_k)
     assert np.array_equal(np.asarray(nv, np.float32), exp_v)
     # mask=None appends every row
-    nk2, _ = A.kv_append(ck, cv, kn, vn, pos, None, headed=headed)
+    nk2, _ = attn.kv_write(ck, cv, kn[:, None], vn[:, None], pos, None,
+                           headed=headed)
     idx = (1, slice(None), 5) if headed else (1, 5)
     assert np.all(np.asarray(nk2, np.float32)[idx] == 7.0)
 

@@ -220,20 +220,23 @@ def test_stored_zero_decodes_to_exact_zero(fmt):
     assert (np.asarray(c).view(np.uint32) == 0).all()
 
 
-@pytest.mark.parametrize("op,platform,interpret,want", [
-    ("fp4_gemm", "gpu", False, "triton"),
-    ("fp4_gemm", "cpu", False, "xla"),
-    ("fp4_gemm", "cpu", True, "interpret"),
-    ("fp4_gemm", "gpu", True, "interpret"),
-    ("grouped_gemm", "gpu", False, "triton"),
-    ("grouped_gemm", "cpu", False, "xla"),
-    ("w4a8_gemm", "gpu", False, "xla"),
-    ("decode_attention", "gpu", False, "xla"),
-    ("prefill_attention", "gpu", True, "xla"),
-    ("kv_write", "cpu", False, "xla"),
+@pytest.mark.parametrize("op,platform,interpret,m,want", [
+    ("fp4_gemm", "gpu", False, None, "triton"),
+    ("fp4_gemm", "cpu", False, None, "xla"),
+    ("fp4_gemm", "cpu", True, None, "interpret"),
+    ("fp4_gemm", "gpu", True, None, "interpret"),
+    ("grouped_gemm", "gpu", False, None, "triton"),
+    ("grouped_gemm", "cpu", False, None, "xla"),
+    ("fp4_gemm", "gpu", False, dispatch.KERNEL_MAX_M, "triton"),
+    ("fp4_gemm", "gpu", False, dispatch.KERNEL_MAX_M + 1, "xla"),
+    ("grouped_gemm", "gpu", False, 4 * dispatch.KERNEL_MAX_M, "xla"),
+    ("grouped_gemm", "cpu", True, 4 * dispatch.KERNEL_MAX_M, "interpret"),
 ])
-def test_dispatch_per_platform(op, platform, interpret, want):
-    assert dispatch.implementation(op, interpret, platform=platform) == want
+def test_dispatch_per_platform(op, platform, interpret, m, want):
+    """Kernel up to KERNEL_MAX_M rows on the GPU, XLA beyond it and on the
+    CPU; interpret mode whenever the caller asks, at any m."""
+    assert dispatch.implementation(op, interpret, platform=platform,
+                                   m=m) == want
 
 
 @pytest.mark.parametrize("platform", ["rocm", "metal", "plugin"])

@@ -46,6 +46,30 @@ def test_quantize_linear_tp_kshard_matches_concat():
         assert np.abs(deq - ref).max() < np.abs(ref).max() * 0.25
 
 
+def test_place_params_tp_one_quantization_many_meshes():
+    """quantize_tp once, place on two disjoint meshes (the replicas of a
+    cluster): each copy sits on its own devices with the specs the TP
+    forward reads and holds the bytes quantize_params_tp makes there."""
+    cfg = llama.LlamaConfig(
+        vocab_size=256, hidden_size=256, intermediate_size=512,
+        num_layers=1, num_heads=8, num_kv_heads=4, head_dim=32,
+        max_seq_len=64)
+    params = llama.init_params(cfg, jax.random.PRNGKey(2))
+    q = par.quantize_tp(params, 2, "nvfp4")
+    meshes = [Mesh(np.array(jax.devices()[2 * i:2 * i + 2]).reshape(1, 2),
+                   ("dp", "tp")) for i in range(2)]
+    for mesh in meshes:
+        placed = par.place_params_tp(q, mesh)
+        lp = placed["layers"][0]
+        assert lp["wq"]["words"].sharding.spec == P(None, "tp")
+        assert lp["wo"]["words"].sharding.spec == P("tp", None)
+        assert (set(lp["w_down"]["scales"].sharding.device_set)
+                == set(mesh.devices.flat))
+    want = par.quantize_params_tp(params, cfg, meshes[1])
+    for a, b in zip(jax.tree.leaves(placed), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 def test_tp_forward_matches_single_device():
     cfg = llama.LlamaConfig(
         vocab_size=256, hidden_size=256, intermediate_size=512,

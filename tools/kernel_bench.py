@@ -153,8 +153,7 @@ def attn_cases(key):
         pos = jnp.full((B,), S - 1, jnp.int32)
 
         def dec(q, ck, cv):
-            return attn.decode_attention_contiguous(q, ck, cv, pos,
-                                                    nb=S // 128)
+            return attn.decode_attention(q, ck, cv, pos, window=S)
 
         nbytes = 2 * ck.size * ck.dtype.itemsize
         t = benchlib.marginal_time(dec, q, ck, cv, bytes_hint=nbytes)
@@ -170,7 +169,7 @@ def attn_cases(key):
     pos0 = jnp.asarray([S - T], jnp.int32)
 
     def pre(q, ck, cv):
-        return attn.flash_prefill_attention(q, ck, cv, pos0, ns=S // 128)
+        return attn.prefill_attention(q, ck, cv, pos0, window=S)
 
     t = benchlib.marginal_time(pre, q, ck, cv, bytes_hint=4 * ck.size)
     print(f"prefill_attention xla T={T} S={S} us={_us(t)}", flush=True)
@@ -180,10 +179,11 @@ def attn_cases(key):
     p = jnp.arange(B, dtype=jnp.int32) * 7
 
     def app(kn, ck):
-        return attn.kv_append(ck, ck, kn, kn, p, headed=True)[0]
+        return attn.kv_write(ck, ck, kn[:, None], kn[:, None], p,
+                             headed=True)[0]
 
     t = benchlib.marginal_time(app, kn, ckh, bytes_hint=1e6)
-    print(f"kv_append xla B={B} S={S} us={_us(t)}", flush=True)
+    print(f"kv_write xla B={B} S={S} us={_us(t)}", flush=True)
 
 
 def main():

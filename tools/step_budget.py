@@ -35,6 +35,7 @@ import jax.numpy as jnp
 from petit_jax.models import llama
 from petit_jax.ops import autotune
 from petit_jax.ops import gemm as gemm_mod
+from petit_jax.ops.kernels import attention as attn_mod
 from petit_jax.utils import benchlib, compile_cache
 
 
@@ -139,21 +140,13 @@ def make_chain(cfg, bs, fmt, kv_window, variant):
                     ck, cv = c
                 else:
                     ck, cv = cache[i]
-                    from petit_jax.ops.kernels import (
-                        attention as attn_w)
-                    # same in-place pallas append the model path uses
-                    # (llama.attention); the old vmap'd
-                    # dynamic_update_slice rewrote the whole cache
-                    ck, cv = attn_w.kv_append(
-                        ck, cv, kk.reshape(bs, nkv, d),
-                        vv.reshape(bs, nkv, d), pos2[:, 0])
+                    # the KV write the model path uses (llama.attention)
+                    ck, cv = attn_mod.kv_write(ck, cv, kk, vv, pos2[:, 0])
                     c = (ck, cv)
-                from petit_jax.ops.kernels import attention as attn_mod
                 S = ck.shape[1]
-                nb = min(-(-kv_window // 128), S // 128)
-                o = attn_mod.decode_attention_contiguous(
-                    q.reshape(bs, nq, d), ck, cv, pos2[:, 0], nb=nb,
-                    page_size=128)
+                window = min(-(-kv_window // 128), S // 128) * 128
+                o = attn_mod.decode_attention(
+                    q.reshape(bs, nq, d), ck, cv, pos2[:, 0], window=window)
                 o = o.reshape(bs, nq * d).astype(x.dtype)
             a = lin(o, lp["wo"])
             x = x + a
